@@ -1,0 +1,3 @@
+from .base import ARCH_IDS, all_configs, get_config, param_count, reduced_config
+
+__all__ = ["ARCH_IDS", "all_configs", "get_config", "param_count", "reduced_config"]

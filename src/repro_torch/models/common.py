@@ -1,0 +1,130 @@
+"""Shared model components: norms, rotary embeddings, initialisers, masks.
+
+Counterpart of ``repro.models.common``: plain functions over tensors.  The
+reference scans its layer stacks with ``jax.lax.scan``; the port loops over
+the stacked leading axis in Python, so there is no ``scan`` here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.ref import NEG_INF, floor_div
+
+__all__ = [
+    "NEG_INF", "trunc_normal", "rms_norm", "rope_frequencies", "rope_sin_cos", "apply_rope",
+    "swiglu", "causal_mask_bias",
+]
+
+# ---------------------------------------------------------------------------
+# Initialisation
+# ---------------------------------------------------------------------------
+
+_SQRT2 = math.sqrt(2.0)
+
+
+def trunc_normal(
+    generator: torch.Generator, shape: Sequence[int], std: float,
+    dtype: torch.dtype = torch.float32, device="cpu",
+) -> torch.Tensor:
+    """Normal truncated to [-2, 2] standard deviations, times ``std``.
+
+    Drawn in fp32 by inverting the normal CDF on uniforms from ``generator``
+    (which must live on ``device``), then cast.  The numbers differ from the
+    reference's for the same seed: parity tests carry weights across instead.
+    """
+    lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
+    hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
+    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32, device=device)
+    u = u.mul_(hi - lo).add_(lo)
+    x = torch.erfinv(u.mul_(2.0).sub_(1.0)).mul_(_SQRT2).clamp_(-2.0, 2.0)
+    return x.mul_(std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in fp32 with the scale stored as an offset from one (``1 + w``)."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0, device="cpu") -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def rope_sin_cos(
+    positions: torch.Tensor,  # (B, S) integer
+    head_dim: int,
+    theta: float = 10_000.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sin, cos)`` of the rotation angles, each ``(B, S, 1, Dh/2)`` fp32.
+    They depend on the positions and theta only, so a forward pass computes
+    them once and hands them to every layer."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = positions[..., None].float() * freqs  # (B, S, Dh/2)
+    return torch.sin(angles)[:, :, None, :], torch.cos(angles)[:, :, None, :]
+
+
+def apply_rope(
+    x: torch.Tensor,          # (B, S, H, Dh)
+    positions: torch.Tensor,  # (B, S) integer
+    theta: float = 10_000.0,
+    sin_cos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Split-half rotary embedding: the two halves of the head are the pairs.
+    ``sin_cos`` is :func:`rope_sin_cos` of the same positions and theta, if the
+    caller has it already."""
+    sin, cos = sin_cos if sin_cos is not None else rope_sin_cos(positions, x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate) * up
+
+
+# ---------------------------------------------------------------------------
+# Attention masks
+# ---------------------------------------------------------------------------
+
+
+def causal_mask_bias(
+    q_positions: torch.Tensor,   # (B, Sq)
+    kv_positions: torch.Tensor,  # (B, Skv)
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """(B, 1, Sq, Skv) additive fp32 bias: causal, optionally sliding-window
+    or chunked.  As in the reference it does not test ``kp >= 0``: padding
+    positions are the business of the chunked and kernel paths."""
+    q = q_positions[:, None, :, None]
+    k = kv_positions[:, None, None, :]
+    ok = k <= q
+    if window is not None:
+        ok = ok & (k > q - window)
+    if chunk is not None:
+        ok = ok & (floor_div(k, chunk) == floor_div(q, chunk))
+    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+    return bias.masked_fill_(~ok, NEG_INF)

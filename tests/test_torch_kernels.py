@@ -1,0 +1,357 @@
+"""The port's attention kernel module against the JAX package, on the CPU.
+
+The same inputs, made with numpy from a seed, go through
+``repro.kernels.ops.flash_attention`` (the Pallas kernel in interpret mode)
+and ``repro.kernels.ref.attention_reference`` on one side, and through the
+port's ``flash_attention`` wrapper (which on CPU tensors runs the kernel's
+plain PyTorch version) and the port's oracle on the other.  Tolerances are
+the reference's own: 2e-5 in float32, 2e-2 in bfloat16 (absolute and
+relative).  The CUDA kernel itself is held against the plain version on the
+GPU by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+torch.set_num_threads(1)
+
+F32, BF16 = "float32", "bfloat16"
+TOL = {F32: 2e-5, BF16: 2e-2}
+JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
+TDT = {F32: torch.float32, BF16: torch.bfloat16}
+
+
+def _inputs(B, Sq, Skv, Hq, Hkv, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, Hq, Dh), dtype=np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, Dh), dtype=np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, Dh), dtype=np.float32)
+    qpos = np.broadcast_to(np.arange(Skv - Sq, Skv, dtype=np.int32)[None], (B, Sq)).copy()
+    kpos = np.broadcast_to(np.arange(Skv, dtype=np.int32)[None], (B, Skv)).copy()
+    return q, k, v, qpos, kpos
+
+
+def _to_jax(arrs, dtype):
+    q, k, v, qpos, kpos = arrs
+    cast = lambda x: jnp.asarray(x).astype(JDT[dtype])
+    return cast(q), cast(k), cast(v), jnp.asarray(qpos), jnp.asarray(kpos)
+
+
+def _to_torch(arrs, dtype):
+    q, k, v, qpos, kpos = arrs
+    cast = lambda x: torch.from_numpy(x).to(TDT[dtype])
+    return cast(q), cast(k), cast(v), torch.from_numpy(qpos), torch.from_numpy(kpos)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _flat(q, k, v, qpos, kpos, lib):
+    """Model layout -> the oracles' (BH, S, Dh), K / V repeated per group."""
+    B, Sq, Hq, Dh = q.shape
+    g = Hq // k.shape[2]
+    if lib is torch:
+        tr = lambda x: x.permute(0, 2, 1, 3)
+        rep = lambda x, n, ax: x.repeat_interleave(n, ax)
+    else:
+        tr = lambda x: x.transpose(0, 2, 1, 3)
+        rep = lambda x, n, ax: jnp.repeat(x, n, ax)
+    qf = tr(q).reshape(B * Hq, Sq, Dh)
+    kf = rep(tr(k), g, 1).reshape(B * Hq, -1, Dh)
+    vf = rep(tr(v), g, 1).reshape(B * Hq, -1, Dh)
+    return qf, kf, vf, rep(qpos, Hq, 0), rep(kpos, Hq, 0)
+
+
+def _unflat(out, B, Hq, lib):
+    out = out.reshape(B, Hq, -1, out.shape[-1])
+    return out.permute(0, 2, 1, 3) if lib is torch else out.transpose(0, 2, 1, 3)
+
+
+def _check_all(arrs, dtype, tol=None, window=None, chunk=None, block_q=None, block_kv=None,
+               pallas=True):
+    """Port wrapper (plain version) and port oracle vs JAX kernel and JAX oracle."""
+    tol = tol or TOL[dtype]
+    B, _, Hq, _ = arrs[0].shape
+    jq = _to_jax(arrs, dtype)
+    tq = _to_torch(arrs, dtype)
+    want_oracle = _np(_unflat(
+        jref.attention_reference(*_flat(*jq, jnp), window=window, chunk=chunk), B, Hq, jnp))
+    got_oracle = _np(_unflat(
+        ref.attention_reference(*_flat(*tq, torch), window=window, chunk=chunk), B, Hq, torch))
+    before = fa.flash_attention.launches
+    got = _np(ops.flash_attention(*tq, window=window, chunk_attn=chunk,
+                                  block_q=block_q, block_kv=block_kv))
+    assert fa.flash_attention.launches == before, "a CPU tensor must not count as a launch"
+    np.testing.assert_allclose(got_oracle, want_oracle, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, want_oracle, atol=tol, rtol=tol)
+    if pallas:
+        want = _np(jops.flash_attention(*jq, window=window, chunk_attn=chunk,
+                                        block_q=block_q, block_kv=block_kv))
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+ATTN_SHAPES = [
+    # (B, Sq, Skv, Hq, Hkv, Dh) — the sweep of tests/test_kernels.py
+    (1, 128, 128, 2, 2, 64),
+    (2, 128, 128, 4, 1, 64),
+    (2, 64, 256, 4, 2, 128),
+    (1, 256, 256, 8, 4, 128),
+    (2, 128, 128, 4, 4, 256),
+]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_flash_attention_shapes_dtypes(shape, dtype):
+    _check_all(_inputs(*shape), dtype, block_q=64, block_kv=64)
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_flash_attention_sliding_window(window):
+    _check_all(_inputs(2, 128, 128, 4, 2, 64), F32, window=window, block_q=64, block_kv=64)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_flash_attention_chunked_mask(chunk):
+    _check_all(_inputs(2, 128, 128, 4, 2, 64), F32, chunk=chunk, block_q=64, block_kv=64)
+
+
+@pytest.mark.parametrize("bq,bkv", [(32, 32), (64, 128), (128, 64)])
+def test_flash_attention_block_shapes(bq, bkv):
+    """Tile shape must not change the math (the demotion-knob invariant)."""
+    arrs = _inputs(1, 128, 128, 2, 2, 64)
+    _check_all(arrs, F32, block_q=bq, block_kv=bkv)
+    tq = _to_torch(arrs, F32)
+    base = ops.flash_attention(*tq, block_q=128, block_kv=128)
+    out = ops.flash_attention(*tq, block_q=bq, block_kv=bkv)
+    np.testing.assert_allclose(_np(out), _np(base), atol=2e-5, rtol=2e-5)
+
+
+ODD_SHAPES = [
+    # (B, Sq, Skv, Hq, Hkv, Dh, window, chunk) — none tile-aligned
+    (1, 200, 200, 2, 2, 64, None, None),
+    (2, 17, 40, 4, 2, 64, None, None),
+    (1, 1, 333, 4, 4, 64, None, None),
+    (2, 100, 100, 4, 2, 64, 32, None),
+    (1, 200, 200, 2, 2, 64, None, 64),
+    (1, 129, 257, 2, 1, 128, None, None),
+]
+
+
+@pytest.mark.parametrize("shape", ODD_SHAPES)
+def test_flash_attention_unaligned_lengths(shape):
+    *dims, window, chunk = shape
+    _check_all(_inputs(*dims), F32, tol=3e-5, window=window, chunk=chunk)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("sq", [1, 48])
+def test_flash_attention_head_width_80(sq, dtype):
+    """stablelm_3b's heads: 80 wide, a multiple of 16 but no power of two."""
+    _check_all(_inputs(2, sq, 96, 4, 4, 80), dtype, pallas=(dtype == F32))
+
+
+def test_flash_attention_big_means_unrestricted():
+    """The model passes BIG (1 << 30), not None, for "no window / no chunk"."""
+    arrs = _inputs(2, 40, 72, 4, 2, 64)
+    tq = _to_torch(arrs, F32)
+    free = ops.flash_attention(*tq)
+    big = ops.flash_attention(*tq, window=fa.BIG, chunk_attn=fa.BIG)
+    assert torch.equal(free, big)
+    jq = _to_jax(arrs, F32)
+    want = _unflat(jref.attention_reference(*_flat(*jq, jnp), window=fa.BIG, chunk=fa.BIG),
+                   2, 4, jnp)
+    np.testing.assert_allclose(_np(big), _np(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_unequal_positions_per_batch():
+    """Decode with unequal slot lengths: one query row a slot, each at its own position."""
+    q, k, v, _, kpos = _inputs(4, 1, 64, 4, 2, 64)
+    qpos = np.array([[3], [63], [17], [40]], dtype=np.int32)
+    _check_all((q, k, v, qpos, kpos), F32, pallas=False)
+
+
+def test_fully_masked_row_is_mean_of_values():
+    """NEG_INF is finite: a row whose every key is masked gets a uniform
+    softmax over the keys — no NaN, no zeros — in the port as in the oracle."""
+    q, k, v, _, kpos = _inputs(1, 3, 50, 2, 2, 64)
+    qpos = np.full((1, 3), -2, dtype=np.int32)       # before every key
+    tq = _to_torch((q, k, v, qpos, kpos), F32)
+    out = ops.flash_attention(*tq)
+    want = torch.from_numpy(v).mean(dim=1, keepdim=True).expand(1, 3, 2, 64)
+    np.testing.assert_allclose(_np(out), _np(want), atol=2e-5, rtol=2e-5)
+    _check_all((q, k, v, qpos, kpos), F32, pallas=False)
+
+
+def test_padding_positions_are_masked():
+    """kv position -1 marks padding: masked whatever the causal test says."""
+    q, k, v, qpos, kpos = _inputs(1, 8, 40, 2, 1, 64)
+    kpos[:, 30:] = -1
+    _check_all((q, k, v, qpos, kpos), F32, pallas=False)
+    tq = _to_torch((q, k, v, qpos, kpos), F32)
+    short = ops.flash_attention(tq[0], tq[1][:, :30], tq[2][:, :30], tq[3], tq[4][:, :30])
+    np.testing.assert_allclose(_np(ops.flash_attention(*tq)), _np(short), atol=2e-5, rtol=2e-5)
+
+
+def test_floor_division_of_negative_positions():
+    """``//`` floors (C's ``/`` truncates): position -1 is in chunk -1, not 0."""
+    x = torch.tensor([-65, -64, -1, 0, 63, 64], dtype=torch.int32)
+    assert ref.floor_div(x, 64).tolist() == [-2, -1, -1, 0, 0, 1]
+    assert ref.floor_div(x, 64).tolist() == (np.asarray(x) // 64).tolist()
+
+
+def test_plain_reads_strided_views_without_copy():
+    """The wrapper takes the model layout through strides: a window of a longer
+    cache and every other head give what contiguous copies give."""
+    arrs = _inputs(2, 9, 80, 8, 4, 64)
+    q, k, v, qpos, kpos = _to_torch(arrs, F32)
+    views = (q[:, :, ::2], k[:, 10:70, ::2], v[:, 10:70, ::2], qpos, kpos[:, 10:70])
+    got = ops.flash_attention(*views)
+    want = ops.flash_attention(*(t.contiguous() for t in views))
+    assert torch.equal(got, want)
+
+
+def test_alignment_probe_picks_the_load_path():
+    """16-byte loads only where every row of an operand starts on a 16-byte
+    boundary: base pointer and all three outer strides."""
+    t = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16)
+    assert fa._aligned16(t)
+    assert fa._aligned16(t[:, 2:, ::2])              # offsets and strides of whole rows
+    buf = torch.zeros(t.numel() + 8, dtype=torch.bfloat16)
+    assert not fa._aligned16(buf[1:1 + t.numel()].view(t.shape))   # base off by 2 bytes
+    odd = torch.zeros(2, 8, 4, 20, dtype=torch.bfloat16)[..., :16]  # rows 40 bytes apart
+    assert not fa._aligned16(odd)
+
+
+# ---------------------------------------------------------------------------
+# The tile chooser's contract
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("head_dim", [16, 64, 80, 128, 256])
+def test_choose_tile_always_launchable(head_dim):
+    """Whatever the chooser returns is a tile the kernel is built for, within
+    the shared-memory and register limits, for short and odd lengths too."""
+    for sq in (1, 7, 17, 100, 120, 127, 129, 200, 333, 4096):
+        for skv in (1, 40, 200, 1500, 32768):
+            bq, bkv, threads = fa.choose_tile(sq, skv, head_dim)
+            assert bq in fa.TILE_Q and bkv in fa.TILE_KV and threads == fa.THREADS
+            assert fa.smem_bytes(head_dim, bq, bkv) <= fa.SMEM_PER_BLOCK
+            assert fa.accumulator_registers(head_dim, bq, bkv) < fa.MAX_REGISTERS
+            # a decode-sized query takes the small tile
+            assert bq == 16 if sq <= 16 else bq == 64
+
+
+def test_choose_tile_honours_overrides_and_budget():
+    assert fa.choose_tile(512, 1024, 80) == (64, 64, 256)
+    assert fa.choose_tile(1, 1024, 80) == (16, 64, 256)
+    # overrides snap down to an instantiated tile, never up
+    assert fa.choose_tile(512, 1024, 80, block_q=16, block_kv=32)[:2] == (16, 32)
+    assert fa.choose_tile(512, 1024, 80, block_q=128, block_kv=128)[:2] == (64, 64)
+    assert fa.choose_tile(512, 1024, 80, block_q=32, block_kv=48)[:2] == (16, 32)
+    assert fa.choose_tile(512, 1024, 80, block_q=8, block_kv=8)[:2] == (16, 32)
+    # a smaller budget never yields a larger tile, and is respected
+    big = fa.choose_tile(4096, 4096, 256)
+    small = fa.choose_tile(4096, 4096, 256, smem_budget=100 * 1024)
+    assert small[0] * small[1] <= big[0] * big[1]
+    assert fa.smem_bytes(256, *small[:2]) <= 100 * 1024
+    with pytest.raises(ValueError):
+        fa.choose_tile(4096, 4096, 256, smem_budget=16 * 1024)
+
+
+@pytest.mark.parametrize("head_dim", [0, 8, 24, 72, 272])
+def test_head_widths_the_kernel_does_not_take(head_dim):
+    with pytest.raises(ValueError):
+        fa.choose_tile(128, 128, head_dim)
+    if head_dim:
+        q = torch.zeros(1, 4, 2, head_dim)
+        pos = torch.zeros(1, 4, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            ops.flash_attention(q, q, q, pos, pos)
+
+
+# ---------------------------------------------------------------------------
+# What the wrapper refuses
+# ---------------------------------------------------------------------------
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v, qpos, kpos = _to_torch(_inputs(1, 8, 8, 2, 2, 64), F32)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half(), qpos, kpos)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), v.bfloat16(), qpos, kpos)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k, v, qpos.float(), kpos)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v[:, :4], qpos, kpos)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :1].expand(1, 8, 3, 64), v[:, :, :1].expand(1, 8, 3, 64),
+                            qpos, kpos)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, qpos, kpos, window=0)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.flash_attention(q.clone().requires_grad_(), k, v, qpos, kpos)
+    with torch.no_grad():
+        ops.flash_attention(q.clone().requires_grad_(), k, v, qpos, kpos)
+
+
+def test_build_is_lazy_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
+    """Importing the kernels compiles nothing; asking for the library where
+    there is no nvcc raises a CompileError naming it — nothing falls back."""
+    from repro_torch.kernels import _build
+
+    assert [p.name for p in _build.sources()] == ["flash_attention.cu"]
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.Path, "exists", lambda self: False)
+    with pytest.raises(_build.CompileError, match="nvcc"):
+        _build.build()
+    assert not list(tmp_path.iterdir())
+
+
+def test_ptxas_log_parser():
+    from repro_torch.kernels import _build
+
+    log = """==> flash_attention.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1kIfLi5ELi4ELi4EEv6Params' for 'sm_90a'
+ptxas info    : Function properties for _Z1kIfLi5ELi4ELi4EEv6Params
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 572 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1kIfLi16ELi4ELi4EEv6Params' for 'sm_90a'
+    24 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 128 bytes smem, 572 bytes cmem[0]
+"""
+    recs = _build.parse_ptxas_log(log)
+    assert [r["registers"] for r in recs] == [96, 255]
+    assert recs[0]["spill_store_bytes"] == 0 and recs[0]["static_smem_bytes"] == 0
+    assert (recs[1]["stack_bytes"], recs[1]["spill_store_bytes"], recs[1]["spill_load_bytes"],
+            recs[1]["static_smem_bytes"]) == (24, 16, 8, 128)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_on_the_card():
+    """Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the full sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernel has no interpret mode")
+    arrs = _inputs(2, 37, 300, 4, 2, 80)
+    tq = tuple(t.cuda() for t in _to_torch(arrs, F32))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(*tq)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(*tq)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=2e-5, rtol=2e-5)
