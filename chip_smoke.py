@@ -2,28 +2,42 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                 # every phase; needs one CUDA device
-    python3 chip_smoke.py --phases device,build,kernel_vs_plain
+    python3 chip_smoke.py --phases device,build,kernel_vs_plain,ssd_vs_plain
 
 It imports ``repro_torch`` only, builds the CUDA kernels from
-``src/repro_torch/kernels/csrc/`` with ``nvcc``, and drives the port's main
-path through the entry points a user calls.  Each phase prints one JSON line:
+``src/repro_torch/kernels/csrc/`` with ``nvcc`` (one process a source, all
+started together), and drives the port's three serving paths through the entry
+points a user calls.  Each phase prints one JSON line:
 
 1. ``device``            card name and power limit (``nvidia-smi``), torch / CUDA / nvcc versions
-2. ``build``             build seconds, the ``.so``, per-kernel registers / spills from ptxas
+2. ``build``             build seconds, the ``.so``, per-kernel registers / spills / shared
+                         memory from ptxas, instantiations named readably
 3. ``kernel_vs_plain``   the attention kernel against its plain PyTorch version and the
                          oracle over shapes, dtypes, masks and ragged lengths
                          (tolerance 2e-5 in fp32, 2e-2 in bf16, absolute + relative)
-4. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
+4. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
+                         oracle: the reference's shape sweep, ragged lengths, an initial
+                         state, strided views, p-splits, both full-width shapes, and the
+                         inputs it must refuse (tolerance 2e-4 in fp32, 5e-2 in bf16)
+5. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
                          weights from a seed): 16 requests through 8 slots; every attention
                          call must have gone through the kernel (launch count); logits are
                          re-derived through the chunked PyTorch path and compared
-5. ``kernels``           one line ``{"kernels": [...]}``: launches on the main path, error
-                         against the plain version, time, plain time, library time
-                         (``scaled_dot_product_attention``, a yardstick the port never
-                         calls) and the card's bound, at the two shapes the main path uses
-6. ``serve_throughput``  tokens/s and completion latencies, with the card's name and limit
+6. ``serve_mamba2``      the same on full-width mamba2_370m (48 mamba layers): every prefill
+                         layer through the SSD kernel, decode in plain PyTorch; logits
+                         against ``ssd_impl="chunked"``
+7. ``serve_zamba2``      the same on full-width zamba2_2_7b (54 mamba layers, a shared
+                         attention block applied 9 times): both kernels on one path
+8. ``kernels``           one line ``{"kernels": [...]}``: for each kernel its launches on
+                         the three paths, error against the plain version, time, plain
+                         time, library time (``scaled_dot_product_attention`` for attention,
+                         a yardstick the port never calls; none exists for the SSD scan)
+                         and the card's bound, at the shapes the main paths use
+9. ``serve_throughput``  per model: tokens/s and completion latencies, with the card
 
-``--phases serve,profile`` adds a ``torch.profiler`` pass over a few decode steps
+Each serving path runs with every launch count set to 0 just before it and
+read just after.  ``--phases serve,serve_mamba2,serve_zamba2,profile`` adds a ``torch.profiler``
+pass over a few decode steps and a 512-token prefill of each served model
 (device time by kernel, device busy share); it is not part of the default run.
 
 Any failed phase ends the run with a non-zero exit code; there is no CPU
@@ -50,18 +64,27 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 
-PHASES = ["device", "build", "kernel_vs_plain", "serve", "kernels", "serve_throughput"]
-EXTRA_PHASES = ["profile"]   # not run by default: python3 chip_smoke.py --phases serve,profile
+PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", "serve", "serve_mamba2",
+          "serve_zamba2", "kernels", "serve_throughput"]
+EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,serve_mamba2,serve_zamba2,profile
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # dense bf16 tensor-core rate; the bound is stated against these
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 KERNEL_REPLACES = "src/repro/kernels/flash_attention.py:86"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
+SSD_REPLACES = "src/repro/kernels/mamba2_ssd.py:37"
+#: where every phase puts its tensors (a rehearsal on the CPU may point it there)
+DEVICE = torch.device("cuda")
+#: each kernel's wrapper, which carries its launch count
+WRAPPERS = {"flash_attention": fa.flash_attention, "mamba2_ssd": ssd.mamba2_ssd}
 
 
 class SmokeFailure(RuntimeError):
@@ -72,6 +95,16 @@ def require(cond, message: str) -> None:
     # not `assert`: the checks must hold under `python -O` too
     if not cond:
         raise SmokeFailure(message)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0: a serving path starts here."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,7 +125,7 @@ def make_case(B, Sq, Skv, Hq, Hkv, Dh, dtype, seed=0, q_positions=None):
     """Inputs from a seeded numpy generator, on the card; the query block sits
     at the end of the kv range unless ``q_positions`` says otherwise."""
     rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
+    dev = DEVICE
 
     def t(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(dtype)
@@ -173,29 +206,50 @@ def phase_device(ctx):
 
 
 _MANGLED = re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+_MANGLED_SSD = re.compile(r"mamba2_ssd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 
 
 def readable(mangled: str) -> str:
-    """``flash_attention_kernel<T, NJ, RM, NKJ>`` as dtype, head-width class and tile."""
+    """``flash_attention_kernel<T, NJ, RM, NKJ>`` as dtype, head-width class and
+    tile; ``mamba2_ssd_kernel<T, N, PS>`` as dtype, state width and p_block."""
     m = _MANGLED.search(mangled)
-    if not m:
-        return mangled
-    t, nj, rm, nkj = m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
-    return (f"flash_attention<{'float' if t == 'f' else 'bf16'}, Dh<={16 * nj}, "
-            f"BQ={16 * rm}, BKV={16 * nkj}>")
+    if m:
+        t, nj, rm, nkj = m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
+        return (f"flash_attention<{'float' if t == 'f' else 'bf16'}, Dh<={16 * nj}, "
+                f"BQ={16 * rm}, BKV={16 * nkj}>")
+    m = _MANGLED_SSD.search(mangled)
+    if m:
+        t, n, ps = m.group(1), int(m.group(2)), int(m.group(3))
+        return f"mamba2_ssd<{'float' if t == 'f' else 'bf16'}, N={n}, p_block={ps}>"
+    return mangled
 
 
 def phase_build(ctx):
     t0 = time.perf_counter()
     info = _build.info()
-    res = [{**r, "kernel": readable(r["kernel"])} for r in info.resources()]
+    res = []
+    for r in info.resources():
+        entry = {**r, "kernel": readable(r["kernel"])}
+        ssd_kernel = _MANGLED_SSD.search(r["kernel"])
+        if ssd_kernel:   # its dynamic shared memory, by the formula checked below
+            entry["dynamic_smem_bytes"] = ssd.smem_bytes(int(ssd_kernel.group(2)),
+                                                         int(ssd_kernel.group(3)))
+        res.append(entry)
     require(res, "ptxas reported no kernel")
     ctx["resources"] = {r["kernel"]: r for r in res}
+    by_kernel = {}
+    for name in WRAPPERS:
+        mine = [r for r in res if r["kernel"].startswith(name + "<")]
+        by_kernel[name] = {
+            "instantiations": len(mine),
+            "max_registers": max((r["registers"] for r in mine), default=None),
+            "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
+        }
     emit("build", seconds=round(info.seconds or time.perf_counter() - t0, 3), reused=info.reused,
-         so=os.path.relpath(info.path), kernels=len(res),
-         max_registers=max(r["registers"] for r in res),
+         so=os.path.relpath(info.path), sources=[p.name for p in _build.sources()],
+         kernels=len(res), max_registers=max(r["registers"] for r in res),
          spill_bytes=sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in res),
-         resources=res)
+         by_kernel=by_kernel, resources=res)
     # the chooser's shared-memory formula is the kernel's own
     lib = _build.load()
     lib.repro_flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -206,6 +260,15 @@ def phase_build(ctx):
                 require(lib.repro_flash_attention_smem_bytes(dh, bq, bkv)
                         == fa.smem_bytes(dh, bq, bkv),
                         f"shared-memory formulas differ at Dh={dh}, tile ({bq}, {bkv})")
+    lib.repro_mamba2_ssd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.repro_mamba2_ssd_smem_bytes.restype = ctypes.c_longlong
+    for n in ssd.STATE_WIDTHS:
+        for ps in ssd.P_BLOCKS:
+            require(lib.repro_mamba2_ssd_smem_bytes(n, ps) == ssd.smem_bytes(n, ps),
+                    f"SSD shared-memory formulas differ at N={n}, p_block={ps}")
+    names = [r["kernel"] for r in res]
+    require(sum(n.startswith("mamba2_ssd<") for n in names) == 2 * len(ssd.STATE_WIDTHS)
+            * len(ssd.P_BLOCKS), "the build lacks SSD instantiations")
 
 
 ATTN_SHAPES = [
@@ -296,12 +359,167 @@ def phase_kernel_vs_plain(ctx):
             raise SmokeFailure("the wrapper took an input the kernel does not take")
 
 
+SSD_SHAPES = [
+    # (B, S, H, P, N): the shape sweep of the reference's kernel tests
+    (1, 64, 2, 16, 16),
+    (2, 128, 4, 32, 32),
+    (1, 96, 8, 16, 64),
+    (2, 64, 4, 64, 16),
+]
+#: the two models' heads: (H, P, N) of mamba2_370m and zamba2_2_7b
+SSD_MODELS = {"mamba2_370m": (32, 64, 128), "zamba2_2_7b": (80, 64, 64)}
+
+
+def make_ssd(B, S, H, P, N, dtype, seed=0, model_layout=False, decays="reference"):
+    """SSD inputs from a seeded numpy generator, on the card.  ``model_layout``
+    cuts x, B and C out of one ``(B, S, H*P + 2N)`` tensor as the model does
+    (strided views, no copy); ``decays="model"`` takes ``a`` as the model's
+    initial ``-linspace(1, 16, H)``, else as the reference's tests draw it."""
+    rng = np.random.default_rng(seed)
+    dev = DEVICE
+
+    def t(shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    if model_layout:
+        xbc = t((B, S, H * P + 2 * N), 0.5).to(dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    else:
+        x = t((B, S, H, P), 0.5).to(dtype)
+        bm, cm = t((B, S, N), 0.4).to(dtype), t((B, S, N), 0.4).to(dtype)
+    dt = torch.nn.functional.softplus(t((B, S, H), 1.0))
+    if decays == "model":
+        a = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        a = -torch.exp(t((H,), 0.3))
+    return x, dt, a, bm, cm
+
+
+def check_ssd(name, args, failures, results, h0=None, p_block=None, out_dtype=None):
+    """One kernel launch against ``ssd_plain`` and the sequential oracle."""
+    x = args[0]
+    before = ssd.mamba2_ssd.launches
+    y, h = ops.mamba2_ssd(*args, h0=h0, p_block=p_block, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    require(ssd.mamba2_ssd.launches == before + 1, "the SSD wrapper did not launch the kernel")
+    y_plain, h_plain = ssd.ssd_plain(*args, h0=h0, out_dtype=out_dtype)
+    y_ref, h_ref = ref.ssd_reference(*args, h0=h0)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[x.dtype]
+    errs = {}
+    ok = y.dtype == (out_dtype or x.dtype) and h.dtype == torch.float32
+    for key, got, want in (("y_vs_plain", y, y_plain), ("h_vs_plain", h, h_plain),
+                           ("y_vs_oracle", y, y_ref), ("h_vs_oracle", h, h_ref)):
+        errs[key], good = compare(got, want, tol)
+        ok = ok and good
+    results.append({"case": name, "dtype": str(x.dtype).replace("torch.", ""),
+                    "shape": list(x.shape) + [args[3].shape[-1]], "p_block": p_block,
+                    **errs, "ok": ok})
+    if not ok:
+        failures.append(name)
+
+
+def phase_ssd_vs_plain(ctx):
+    failures, results = [], []
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape in SSD_SHAPES:
+        for dtype in (f32, bf16):
+            check_ssd(f"shape{shape}", make_ssd(*shape, dtype), failures, results)
+    # a bf16 dt, as tests/test_kernels.py::test_ssd_kernel_bf16 feeds it
+    x, dt, a, bm, cm = make_ssd(1, 64, 4, 16, 32, bf16)
+    check_ssd("bf16 dt", (x, dt.bfloat16(), a, bm, cm), failures, results)
+    # ragged lengths: not a multiple of the kernel's 64-row chunk
+    for S in (1, 3, 63, 65, 100, 200):
+        check_ssd(f"ragged S={S}", make_ssd(2, S, 4, 32, 64, f32, seed=S), failures, results)
+    # an initial state, and an initial state with a ragged length
+    for S in (64, 77):
+        x, dt, a, bm, cm = make_ssd(2, S, 4, 32, 32, f32, seed=3)
+        h0 = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 4, 32, 32),
+                              dtype=np.float32) * 0.3).to(DEVICE)
+        check_ssd(f"h0, S={S}", (x, dt, a, bm, cm), failures, results, h0=h0)
+    # strided views, the model's layout: x, B and C columns of one tensor
+    for dtype in (f32, bf16):
+        check_ssd("strided views", make_ssd(2, 100, 4, 32, 64, dtype, model_layout=True),
+                  failures, results)
+    # p-splits: each block owns 16, 32 or 64 rows of a head's state
+    args = make_ssd(1, 130, 4, 64, 64, f32, model_layout=True)
+    for ps in ssd.P_BLOCKS:
+        check_ssd(f"p_block={ps}", args, failures, results, p_block=ps)
+    # float32 y from bf16 inputs: what the model asks for
+    check_ssd("bf16 in, fp32 out", make_ssd(1, 100, 4, 32, 64, bf16, model_layout=True),
+              failures, results, out_dtype=f32)
+    # both models' heads at full width, in the model's layout and with its decays
+    for model, (H, P, N) in SSD_MODELS.items():
+        for S in (64, 300, 512):
+            check_ssd(f"{model} S={S}", make_ssd(1, S, H, P, N, bf16, model_layout=True,
+                                                 decays="model"),
+                      failures, results, out_dtype=f32)
+        check_ssd(f"{model} fp32 S=300", make_ssd(1, 300, H, P, N, f32, model_layout=True,
+                                                  decays="model"), failures, results)
+    # the split does not change the result: kernel against kernel at 1e-5
+    y16, h16 = ops.mamba2_ssd(*args, p_block=16)
+    for ps in (32, 64):
+        y, h = ops.mamba2_ssd(*args, p_block=ps)
+        err_y, ok_y = compare(y, y16, 1e-5)
+        err_h, ok_h = compare(h, h16, 1e-5)
+        results.append({"case": f"p_block {ps} vs 16", "dtype": "float32",
+                        "y_vs_plain": err_y, "h_vs_plain": err_h, "ok": ok_y and ok_h})
+        if not (ok_y and ok_h):
+            failures.append(f"p_block {ps} vs 16")
+    emit("ssd_vs_plain", cases=len(results), failed=failures,
+         max_err_fp32=max(max(r.get("y_vs_oracle", 0), r["y_vs_plain"]) for r in results
+                          if r["dtype"] == "float32"),
+         max_err_bf16=max(max(r.get("y_vs_oracle", 0), r["y_vs_plain"]) for r in results
+                          if r["dtype"] == "bfloat16"),
+         tolerance={"float32": 2e-4, "bfloat16": 5e-2}, results=results)
+    require(not failures, f"SSD kernel disagrees on: {failures}")
+
+    # what the wrapper must refuse rather than hand to the plain version
+    x, dt, a, bm, cm = make_ssd(1, 64, 2, 32, 32, f32)
+    for bad, exc in (
+        (lambda: ops.mamba2_ssd(x.half(), dt, a, bm.half(), cm.half()), TypeError),
+        (lambda: ops.mamba2_ssd(x, dt, a, bm.bfloat16(), cm.bfloat16()), TypeError),
+        (lambda: ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=torch.bfloat16), TypeError),
+        (lambda: ops.mamba2_ssd(x, dt, a, bm[..., :24], cm[..., :24]), ValueError),
+        (lambda: ops.mamba2_ssd(x[..., :24], dt, a, bm, cm), ValueError),
+        (lambda: ops.mamba2_ssd(x, dt, a, bm, cm, p_block=128), ValueError),
+        (lambda: ops.mamba2_ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm),
+         ValueError),
+        (lambda: ops.mamba2_ssd(x.requires_grad_(), dt, a, bm, cm), RuntimeError),
+    ):
+        before = ssd.mamba2_ssd.launches
+        try:
+            bad()
+        except exc:
+            require(ssd.mamba2_ssd.launches == before, "a refused input counted as a launch")
+        else:
+            raise SmokeFailure("the SSD wrapper took an input the kernel does not take")
+
+
 SERVE = dict(batch_slots=8, max_len=1024, max_new_tokens=32, n_requests=16, seed=0)
 
 
-def phase_serve(ctx):
-    cfg = get_config("stablelm_3b")
-    dev = torch.device("cuda")
+def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=None):
+    """``Server.serve`` on the full-width ``arch`` (bf16, random weights from a
+    seed): 16 requests with prompts of 64-512 tokens through 8 slots, greedy,
+    after a warm-up request.  Every launch count is set to 0 just before the
+    run and read just after; ``expected(prefills, forwards)`` gives the count
+    each kernel must reach.  Then the logits of the first prompt's prefill and
+    first decode step through the kernels are held against those through
+    ``compare_impl`` (the plain PyTorch paths).
+
+    In bf16 the two paths must agree within ``tol`` (reason: ``why``), or
+    within twice the spread that the plain path shows against itself under
+    ``spread_cfg`` — a change of the config that leaves the function as it is
+    and only moves roundings — where that is larger; whether they pick the
+    same tokens is reported.  With ``spread_cfg`` given, the same weights in
+    float32 must also agree within 1e-3 and pick the same tokens: there the
+    two paths differ in the order of fp32 sums, and the decode step in at most
+    a rounding of the conv state, which is bfloat16 whatever the model's dtype."""
+    cfg = get_config(arch)
+    dev = DEVICE
+    base_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(seed=SERVE["seed"])
     scfg = ServeConfig(batch_slots=SERVE["batch_slots"], max_len=SERVE["max_len"],
@@ -343,14 +561,16 @@ def phase_serve(ctx):
     server._decode = counted(server._decode, "decode")
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0           # the main path starts here
+    reset_counts()                  # the path starts here
     t0 = time.perf_counter()
     done = server.serve(requests)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = fa.flash_attention.launches   # ... and ends here
-    ctx["launches"] = launches
-    ctx["server"] = server
+    launches = read_counts()        # ... and ends here
+    # this path's own: the memory held before its model was made is not counted
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    ctx.setdefault("launches", {})[phase] = launches
+    ctx.setdefault("servers", {})[cfg.name] = server
 
     require([c.uid for c in done] == list(range(SERVE["n_requests"])), "completions out of order")
     require(all(len(c.tokens) == SERVE["max_new_tokens"] for c in done), "a completion is short")
@@ -358,50 +578,118 @@ def phase_serve(ctx):
     require(not bool(torch.stack(nan_seen).any()), "NaN in the logits")
     forwards = steps["prefill"] + steps["decode"]
     require(steps["prefill"] == SERVE["n_requests"], "not one prefill a request")
-    require(launches == cfg.n_layers * forwards, (
-        f"{launches} kernel launches for {forwards} forward passes of {cfg.n_layers} layers: "
-        "an attention call went around the kernel"))
+    want = expected(steps["prefill"], forwards)
+    require(launches == want, (
+        f"{cfg.name}: launches {launches}, expected {want} for {steps['prefill']} prefills and "
+        f"{forwards} forward passes: a kernel call went around its kernel"))
 
-    # the same logits through the chunked PyTorch path, on the card
-    model_k = server.model
+    # the same logits through the plain PyTorch paths, on the card
     tokens = torch.from_numpy(requests[0].prompt[None]).to(dev)
 
-    def logits_of(impl):
-        model_k.attn_impl = impl
+    def logits_of(model_k, **attrs):
+        kept = {k: getattr(model_k, k) for k in attrs}
+        for k, v in attrs.items():
+            setattr(model_k, k, v)
         try:
             h, state = model_k.prefill({"tokens": tokens}, scfg.max_len)
             pre = model_k.logits(h[:, -1:])[:, 0].float()
             h, state = model_k.decode_step(pre.argmax(-1, keepdim=True), state)
             return pre, model_k.logits(h[:, -1:])[:, 0].float()
         finally:
-            model_k.attn_impl = "hopper"
+            for k, v in kept.items():
+                setattr(model_k, k, v)
 
-    pre_k, dec_k = logits_of("hopper")
-    pre_c, dec_c = logits_of("chunked")
+    def agreement(got, want_, tol_):
+        (pre_k, dec_k), (pre_c, dec_c) = got, want_
+        err_pre, ok_pre = compare(pre_k, pre_c, tol_)
+        err_dec, ok_dec = compare(dec_k, dec_c, tol_)
+        argmax = [bool((pre_k.argmax(-1) == pre_c.argmax(-1)).all()),
+                  bool((dec_k.argmax(-1) == dec_c.argmax(-1)).all())]
+        return {"prefill_err": err_pre, "decode_err": err_dec, "argmax_agrees": argmax,
+                "within": ok_pre and ok_dec}
+
+    kernel_path = logits_of(server.model)
+    plain_path = logits_of(server.model, **compare_impl)
+    checks = {}
+    if spread_cfg is not None:
+        spread = agreement(logits_of(server.model, cfg=dataclasses.replace(cfg, **spread_cfg),
+                                     **compare_impl), plain_path, 0.0)
+        tol = max(tol, 2 * max(spread["prefill_err"], spread["decode_err"]))
+        checks["plain_vs_itself"] = {"changed": spread_cfg, **spread}
+        # the same weights in float32: the paths differ only in the order of sums
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model32 = Model(cfg32, attn_impl=server.model.attn_impl, ssd_impl="hopper", device=dev)
+        model32.load_state_dict(server.model.state_dict())
+        fp32 = agreement(logits_of(model32), logits_of(model32, **compare_impl), 1e-3)
+        checks["float32"] = {"tolerance": 1e-3, **fp32}
+        del model32
+    bf16 = agreement(kernel_path, plain_path, tol)
+    checks["bfloat16"] = {"tolerance": tol, **bf16}
     torch.cuda.synchronize()
-    # bf16 through 32 layers: logits of magnitude ~4 are spaced 0.03 apart and the
-    # two paths round each layer's attention output on their own, so one to two
-    # spacings of difference are expected; 1e-1 (absolute + relative) allows three
-    tol = 1e-1
-    err_pre, ok_pre = compare(pre_k, pre_c, tol)
-    err_dec, ok_dec = compare(dec_k, dec_c, tol)
-    emit("serve", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-         head_dim=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.vocab, dtype="bfloat16", params=n_params,
+    snap = server.metrics_snapshot()
+    emit(phase, model=cfg.name, family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, head_dim=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         ssm=dict(heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                  attn_period=cfg.attn_period) if cfg.family != "dense" else None,
+         dtype="bfloat16", params=n_params,
          init_seconds=round(init_s, 3), serve_seconds=round(serve_s, 3),
          requests=len(done), prompt_lengths=[int(n) for n in lengths],
          tokens=sum(len(c.tokens) for c in done), prefills=steps["prefill"],
-         decode_steps=steps["decode"], kernel_launches=launches,
+         decode_steps=steps["decode"], kernel_launches=launches, expected_launches=want,
          prefill_ms_mean=round(float(np.mean(step_ms["prefill"])), 3),
          decode_step_ms_mean=round(float(np.mean(step_ms["decode"])), 3),
          decode_step_ms_p50=round(float(np.median(step_ms["decode"])), 3),
          decode_step_ms_min=round(float(np.min(step_ms["decode"])), 3),
          decode_step_ms_all=[round(t, 1) for t in step_ms["decode"]],
-         peak_memory_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-         prefill_logits_err_vs_chunked=err_pre, decode_logits_err_vs_chunked=err_dec,
-         argmax_agrees=[bool((pre_k.argmax(-1) == pre_c.argmax(-1)).all()),
-                        bool((dec_k.argmax(-1) == dec_c.argmax(-1)).all())],
-         tolerance=tol, first_completion=done[0].tokens[:8])
-    require(ok_pre and ok_dec, "kernel path and chunked path disagree on the logits")
+         peak_memory_gb=round(peak_gb, 3), tokens_per_s=snap["tokens_per_s"],
+         latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
+         compared_with=compare_impl, logits_max_abs=float(plain_path[0].abs().max()),
+         prefill_logits_err=bf16["prefill_err"], decode_logits_err=bf16["decode_err"],
+         argmax_agrees=bf16["argmax_agrees"], tolerance=tol, tolerance_reason=why,
+         checks=checks, card=ctx.get("card"), first_completion=done[0].tokens[:8])
+    require(bf16["within"], f"{cfg.name}: kernel path and plain path disagree on the logits")
+    if "float32" in checks:
+        require(checks["float32"]["within"] and all(checks["float32"]["argmax_agrees"]),
+                f"{cfg.name}: kernel path and plain path disagree on the float32 logits")
+    return server
+
+
+def phase_serve(ctx):
+    cfg = get_config("stablelm_3b")
+    ctx["server"] = serve_path(
+        ctx, "serve", "stablelm_3b",
+        lambda prefills, forwards: {"flash_attention": cfg.n_layers * forwards, "mamba2_ssd": 0},
+        {"attn_impl": "chunked"}, 1e-1,
+        "bf16 through 32 layers: logits of magnitude ~4 are spaced 0.03 apart and the two "
+        "paths round each layer's attention output on their own, so one to two spacings of "
+        "difference are expected; 1e-1 (absolute + relative) allows three")
+
+
+SSD_WHY = ("the kernel and ssd_chunked both return fp32 y, summed in another order (64-row "
+           "against 256-row chunks); one rounding of y to bf16 in a layer may then fall the "
+           "other way, and such one-ulp differences carry through the layers; 1e-1 as in the "
+           "dense path, or twice the spread of ssd_chunked against itself at chunk 64, "
+           "which moves only roundings, where that is larger")
+SSD_SPREAD = {"ssm_chunk": 64}
+
+
+def phase_serve_mamba2(ctx):
+    cfg = get_config("mamba2_370m")
+    serve_path(ctx, "serve_mamba2", "mamba2_370m",
+               lambda prefills, forwards: {"flash_attention": 0,
+                                           "mamba2_ssd": cfg.n_layers * prefills},
+               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, SSD_SPREAD)
+
+
+def phase_serve_zamba2(ctx):
+    from repro_torch.models.hybrid import n_attn_applications
+
+    cfg = get_config("zamba2_2_7b")
+    apps = n_attn_applications(cfg)
+    serve_path(ctx, "serve_zamba2", "zamba2_2_7b",
+               lambda prefills, forwards: {"flash_attention": apps * forwards,
+                                           "mamba2_ssd": cfg.n_layers * prefills},
+               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, SSD_SPREAD)
 
 
 def time_ms(fn, warmup=3, iters=20):
@@ -466,74 +754,170 @@ def phase_kernels(ctx):
                       "plain_ms": min(t_plain), "library_ms": t_lib, **bound(q, k, v, qpos, kpos)}
         rows[name]["roofline_share"] = rows[name]["bound_ms"] / rows[name]["kernel_ms"]
     dec = rows["decode"]   # 31 of 32 forward passes of a request are decode steps
-    entry = {"name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
-             "replaces": KERNEL_REPLACES, "launches": ctx.get("launches", 0),
-             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-             "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-             "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-             "top_level_shape": "decode", "card": ctx.get("card"), "shapes": rows}
-    ctx["kernels_line"] = {"kernels": [entry]}
-    if "launches" in ctx:
-        require(entry["launches"] > 0, "the main path never launched the kernel")
+    attn = {"name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES, **path_launches(ctx, "flash_attention"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+            "top_level_shape": "decode", "card": ctx.get("card"), "shapes": rows}
+    ctx["kernels_line"] = {"kernels": [attn, ssd_entry(ctx)]}
+    if ctx.get("launches"):
+        for entry in ctx["kernels_line"]["kernels"]:
+            require(entry["launches"] > 0, f"the main paths never launched {entry['name']}")
     print(json.dumps(ctx["kernels_line"]), flush=True)
 
 
+def path_launches(ctx, name):
+    """A kernel's launches on the serving paths that ran: the sum and each path's."""
+    by_path = {phase: counts[name] for phase, counts in ctx.get("launches", {}).items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def ssd_bound(x, dt, a, bm, cm, y, h_last):
+    """Least time the card could take for the scan: every input read once and
+    every output written once at the memory rate, or the operations of the
+    64-row dual form (C Bᵀ once per chunk, lower triangles only, shared by the
+    heads; per head W x, C hᵀ and Bᵀ u) at the bf16 tensor-core rate."""
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, cm, y, h_last))
+    flops = 0
+    for c0 in range(0, S, ssd.CHUNK):
+        q = min(ssd.CHUNK, S - c0)
+        tri = q * (q + 1) // 2
+        flops += B * (2 * tri * N + H * (2 * tri * P + 4 * q * N * P))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_entry(ctx):
+    """The SSD kernel at the prefill of a 512-token prompt of each model, in the
+    model's layout (bf16 x, B, C cut from one tensor; fp32 dt; fp32 y), timed
+    in turns with its plain version and with the other p-splits."""
+    rows = {}
+    for model, (H, P, N) in SSD_MODELS.items():
+        args = make_ssd(1, 512, H, P, N, torch.bfloat16, model_layout=True, decays="model")
+        y, h = ops.mamba2_ssd(*args, out_dtype=torch.float32)
+        y_plain, h_plain = ssd.ssd_plain(*args, out_dtype=torch.float32)
+        err_y, ok_y = compare(y, y_plain, SSD_TOL[torch.float32])
+        err_h, ok_h = compare(h, h_plain, SSD_TOL[torch.float32])
+        require(ok_y and ok_h, f"SSD kernel disagrees with its plain version at {model}'s shape")
+
+        def run(ps=None):
+            return lambda: ops.mamba2_ssd(*args, p_block=ps, out_dtype=torch.float32)
+
+        plain = lambda: ssd.ssd_plain(*args, out_dtype=torch.float32)   # noqa: E731
+        # in turns: plain, kernel, other splits, kernel, plain
+        t_plain = [time_ms(plain, 1, 5)]
+        t_kernel = [time_ms(run())]
+        t_split = {ps: time_ms(run(ps)) for ps in ssd.P_BLOCKS
+                   if P % ps == 0 and ps != ssd.choose_p_block(P)}
+        t_kernel.append(time_ms(run()))
+        t_plain.append(time_ms(plain, 1, 5))
+        rows[model] = {"shape": {"B": 1, "S": 512, "H": H, "P": P, "N": N},
+                       "dtype": "bfloat16 x/B/C, float32 dt and y",
+                       "p_block": ssd.choose_p_block(P),
+                       "blocks": (P // ssd.choose_p_block(P)) * H,
+                       "max_abs_err": max(err_y, err_h),
+                       "kernel_ms": min(t_kernel), "kernel_ms_runs": t_kernel,
+                       "kernel_ms_other_p_blocks": t_split,
+                       "plain_ms": min(t_plain), "library_ms": None,
+                       **ssd_bound(*args, y, h)}
+        rows[model]["roofline_share"] = rows[model]["bound_ms"] / rows[model]["kernel_ms"]
+    top = rows["mamba2_370m"]
+    return {"name": "mamba2_ssd", "route": "cuda", "source": SSD_SOURCE,
+            "replaces": SSD_REPLACES, **path_launches(ctx, "mamba2_ssd"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan",
+            "top_level_shape": "mamba2_370m", "card": ctx.get("card"), "shapes": rows}
+
+
 def phase_serve_throughput(ctx):
-    server = ctx.get("server")
-    require(server is not None, "serve_throughput needs the serve phase")
-    snap = server.metrics_snapshot()
-    emit("serve_throughput", card=ctx.get("card"), tokens_per_s=snap["tokens_per_s"],
-         completions=snap["completions"], tokens=snap["tokens"],
-         latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
-         latency_ms_mean=snap["latency_ms"]["mean"], batch_slots=SERVE["batch_slots"],
-         max_len=SERVE["max_len"], max_new_tokens=SERVE["max_new_tokens"])
+    servers = ctx.get("servers")
+    require(servers, "serve_throughput needs a serving phase")
+    for name, server in servers.items():
+        snap = server.metrics_snapshot()
+        emit("serve_throughput", model=name, card=ctx.get("card"),
+             tokens_per_s=snap["tokens_per_s"],
+             completions=snap["completions"], tokens=snap["tokens"],
+             latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
+             latency_ms_mean=snap["latency_ms"]["mean"], batch_slots=SERVE["batch_slots"],
+             max_len=SERVE["max_len"], max_new_tokens=SERVE["max_new_tokens"])
 
 
-def phase_profile(ctx):
-    """Device time by kernel over a few decode steps of the full-width model at
-    8 slots, from ``torch.profiler``; the busy share is device time over wall time."""
+def _device_profile(fn, repeats):
+    """``fn`` run ``repeats`` times: host wall ms a run (without the profiler),
+    then the device time by kernel from ``torch.profiler`` (device side only)."""
     from torch.profiler import ProfilerActivity, profile
 
-    server = ctx.get("server")
-    require(server is not None, "profile needs the serve phase")
-    model, cfg = server.model, server.model.cfg
-    rng = np.random.default_rng(2)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(8, 256))).to(model.device)
-    _, state = model.prefill({"tokens": tokens}, SERVE["max_len"])
-    step = tokens[:, :1]
-    for _ in range(3):
-        h, state = model.decode_step(step, state)
-        model.logits(h)
-    torch.cuda.synchronize()
-    n_steps = 5
-
-    def run_steps():
-        nonlocal state
-        for _ in range(n_steps):
-            h, state = model.decode_step(step, state)
-            model.logits(h).argmax(-1).cpu()
+    def run():
+        for _ in range(repeats):
+            fn()
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    run_steps()                      # wall time without the profiler's overhead
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device side only
-        run_steps()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages() if dev_us(e) > 0),
                   reverse=True)
-    total_ms = sum(r[0] for r in rows) / 1e3
-    require(total_ms > 0, "the profiler saw no device time")
-    emit("profile", card=ctx.get("card"), steps=n_steps, batch=8,
-         wall_ms_per_step=round(wall_ms / n_steps, 3),
-         device_ms_per_step=round(total_ms / n_steps, 3),
-         device_busy_share=round(total_ms / wall_ms, 4),
-         device_kernels_per_step=sum(r[2] for r in rows) / n_steps,
-         top=[{"kernel": k[:80], "ms_per_step": round(us / 1e3 / n_steps, 4),
-               "calls_per_step": c / n_steps} for us, k, c in rows[:10]])
+    device_ms = sum(r[0] for r in rows) / 1e3 / repeats
+    require(device_ms > 0, "the profiler saw no device time")
+    ours = {name: sum(us for us, k, _ in rows if name + "_kernel" in k) / 1e3 / repeats
+            for name in WRAPPERS}
+    return {"wall_ms": round(wall_ms, 3), "device_ms": round(device_ms, 3),
+            "device_busy_share": round(device_ms / wall_ms, 4),
+            "device_kernels": sum(r[2] for r in rows) / repeats,
+            "our_kernels_ms": {k: round(v, 4) for k, v in ours.items()},
+            "top": [{"kernel": k[:80], "ms": round(us / 1e3 / repeats, 4), "calls": c / repeats}
+                    for us, k, c in rows[:10]]}
+
+
+def phase_profile(ctx):
+    """For each served model, device time by kernel from ``torch.profiler``:
+    over decode steps of the full-width model at 8 slots (cache filled by a
+    256-token prefill), and over the prefill of one 512-token prompt; the busy
+    share is device time over host wall time."""
+    servers = ctx.get("servers")
+    require(servers, "profile needs a serving phase")
+    for name, server in servers.items():
+        model, cfg = server.model, server.model.cfg
+        rng = np.random.default_rng(2)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(8, 256))).to(model.device)
+        _, state = model.prefill({"tokens": tokens}, SERVE["max_len"])
+        step = tokens[:, :1]
+
+        def decode():
+            nonlocal state
+            h, state = model.decode_step(step, state)
+            model.logits(h).argmax(-1).cpu()
+
+        for _ in range(3):
+            decode()
+        torch.cuda.synchronize()
+        dec = _device_profile(decode, 5)
+        prompt = tokens[:1].repeat(1, 2)                       # one prompt of 512 tokens
+
+        def prefill():
+            h, _ = model.prefill({"tokens": prompt}, SERVE["max_len"])
+            model.logits(h[:, -1:]).argmax(-1).cpu()
+
+        prefill()
+        torch.cuda.synchronize()
+        pre = _device_profile(prefill, 3)
+        emit("profile", model=name, card=ctx.get("card"), batch=8, decode_steps=5,
+             wall_ms_per_step=dec["wall_ms"], device_ms_per_step=dec["device_ms"],
+             device_busy_share=dec["device_busy_share"],
+             device_kernels_per_step=dec["device_kernels"], top=dec["top"],
+             decode=dec, prefill_512={"prompts": 3, **pre})
 
 
 def main(argv=None) -> int:

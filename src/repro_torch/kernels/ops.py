@@ -9,17 +9,25 @@ copies nothing.  ``window`` / ``chunk_attn`` are runtime values (``None`` or
 ``BIG`` = unrestricted), which is what lets the model's per-layer masks reach
 the kernel.
 
+``mamba2_ssd`` takes ``x (B, S, H, P)``, ``dt (B, S, H)``, ``a (H,)`` and
+``bm`` / ``cm (B, S, N)`` as the reference's does, plus what the model's path
+needs and the reference kernel lacks: any ``S``, an initial state ``h0``, and
+``y`` in float32 (``out_dtype``).  The reference's ``chunk`` has no
+counterpart (the kernel's chunk is its own, and the result does not depend on
+it); its ``head_block`` becomes ``p_block``, the state rows one block owns.
+
 The device is that of the tensors: CUDA tensors run the kernel (or raise),
 CPU tensors run its plain PyTorch version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import flash_attention as fa
+from . import mamba2_ssd as ssd
 
 
 def flash_attention(
@@ -38,3 +46,18 @@ def flash_attention(
         q, k, v, q_positions, kv_positions,
         window=window, chunk=chunk_attn, block_q=block_q, block_kv=block_kv,
     )
+
+
+def mamba2_ssd(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)
+    a: torch.Tensor,    # (H,)
+    bm: torch.Tensor,   # (B, S, N)
+    cm: torch.Tensor,   # (B, S, N)
+    h0: Optional[torch.Tensor] = None,   # (B, H, P, N) float32
+    p_block: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD chunk scan with the recurrent state kept on chip; returns
+    ``(y (B, S, H, P), h_last (B, H, P, N) float32)``."""
+    return ssd.mamba2_ssd(x, dt, a, bm, cm, h0=h0, p_block=p_block, out_dtype=out_dtype)

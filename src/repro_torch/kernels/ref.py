@@ -1,14 +1,14 @@
-"""Plain PyTorch oracle for the attention kernel (the ``ref.py`` contract).
+"""Plain PyTorch oracles for the kernels (the ``ref.py`` contract).
 
-Small and obviously correct: no chunking, no tiling, the full
-``(Sq, Skv)`` score matrix.  Counterpart of ``repro.kernels.ref``
-(``attention_reference``); the SSD oracle follows with the SSD kernel.
+Small and obviously correct: no chunking, no tiling — the full
+``(Sq, Skv)`` score matrix for attention, the step-by-step recurrence for the
+SSD scan.  Counterpart of ``repro.kernels.ref``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,3 +55,32 @@ def attention_reference(
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssd_reference(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)
+    a: torch.Tensor,    # (H,)
+    bm: torch.Tensor,   # (B, S, N)
+    cm: torch.Tensor,   # (B, S, N)
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential state-space recurrence (the SSD ground truth), one step a
+    token: ``h = exp(dt a) h + dt B x``, ``y = C h``.  Returns ``y`` in
+    ``x``'s dtype and the last state in fp32; ``h0`` is the state before the
+    first token (zeros if not given, as in the reference, which has none)."""
+    B, S, H, P = x.shape
+    N = bm.shape[-1]
+    if h0 is None:
+        h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    else:
+        h = h0.float()
+    af = a.float()
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()                                       # (B, H)
+        decay = torch.exp(dtt * af[None, :])
+        dbx = torch.einsum("bh,bn,bhp->bhpn", dtt, bm[:, t].float(), x[:, t].float())
+        h = h * decay[:, :, None, None] + dbx
+        ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -4,14 +4,17 @@ Counterpart of ``repro.models``: ``Model`` dispatches on
 ``ModelConfig.family``.  Ported so far:
 
 * ``dense``  -> :mod:`repro_torch.models.transformer`
+* ``ssm``    -> a pure Mamba2 stack (:mod:`repro_torch.models.mamba2`)
+* ``hybrid`` -> :mod:`repro_torch.models.hybrid` (Zamba2)
 
-The ``moe`` / ``vlm`` / ``ssm`` / ``hybrid`` / ``audio`` families raise
-``NotImplementedError`` until their slices land.
+The ``moe`` / ``vlm`` / ``audio`` families raise ``NotImplementedError``
+until their slices land.
 
 ``Model`` is an ``nn.Module`` that owns the layer-stacked parameters under the
-reference's key names, so ``state_dict()`` / ``load_state_dict()`` speak the
-reference's tree (see :mod:`repro_torch.convert`).  The entry points used by
-the server:
+reference's key names, each in the reference's dtype (:func:`param_dtypes`:
+``cfg.dtype`` but for the float32 leaves of a mamba layer), so
+``state_dict()`` / ``load_state_dict()`` speak the reference's tree (see
+:mod:`repro_torch.convert`).  The entry points used by the server:
 
     init(generator)                 -> self, parameters drawn at random
     prefill(batch, max_len)         -> (hidden, cache_state)
@@ -27,41 +30,78 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from . import transformer
+from . import hybrid, mamba2, transformer
+from .common import rms_norm
 from .transformer import BIG, ModelConfig, MoEConfig
 
-__all__ = ["Model", "ModelConfig", "MoEConfig", "BIG"]
+__all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dtypes"]
 
 State = Dict[str, Any]
 
-_LATER = {
-    "moe": "the MoE slice", "vlm": "the VLM slice", "ssm": "the SSM slice",
-    "hybrid": "the hybrid slice", "audio": "the encoder-decoder slice",
-}
+PORTED = ("dense", "ssm", "hybrid")
+_LATER = {"moe": "the MoE slice", "vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes with "
+            f"{_LATER.get(cfg.family, 'a later slice')} of the port"
+        )
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Flat ``name -> shape`` of the model's parameters, for every ported
+    family (dots separate the levels of the reference's tree)."""
+    _require_ported(cfg)
+    if cfg.family == "dense":
+        return transformer.param_shapes(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.param_shapes(cfg)
+    layer = mamba2.layer_shapes(cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    return {
+        "embed": (cfg.vocab, cfg.d_model),
+        **{f"mamba.{k}": (cfg.n_layers,) + s for k, s in layer.items()},
+        "final_ln": (cfg.d_model,),
+    }
+
+
+def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
+    """Flat ``name -> dtype``, the reference's: ``cfg.dtype`` for every
+    parameter but a mamba layer's ``a_log`` / ``d_skip`` / ``dt_bias``, which
+    are float32 whatever the model's dtype."""
+    return {
+        name: mamba2.leaf_dtype(name.rsplit(".", 1)[-1], cfg.dtype)
+        if name.startswith("mamba.") else cfg.dtype
+        for name in param_shapes(cfg)
+    }
 
 
 class Model(nn.Module):
     def __init__(
-        self, cfg: ModelConfig, attn_impl: str = "chunked", device: DeviceLike = "cuda"
+        self, cfg: ModelConfig, attn_impl: str = "chunked", ssd_impl: str = "chunked",
+        device: DeviceLike = "cuda",
     ):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes with "
-                f"{_LATER.get(cfg.family, 'a later slice')} of the port"
-            )
+        _require_ported(cfg)
+        if ssd_impl not in mamba2.SSD_IMPLS:
+            raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.ssd_impl = ssd_impl
         self.device = resolve_device(device)
         # storage only; init() or load_state_dict() gives it values.  This slice
         # serves: the parameters ask for no gradients until the trainer is ported
-        self.layers = nn.ParameterDict()
-        for name, shape in transformer.param_shapes(cfg).items():
+        dtypes = param_dtypes(cfg)
+        for name, shape in param_shapes(cfg).items():
             param = nn.Parameter(
-                torch.zeros(shape, dtype=cfg.dtype, device=self.device), requires_grad=False
+                torch.zeros(shape, dtype=dtypes[name], device=self.device), requires_grad=False
             )
-            if name.startswith("layers."):
-                self.layers[name.split(".", 1)[1]] = param
+            if "." in name:   # layers.*, mamba.*, shared_attn.*: one ParameterDict each
+                group, leaf = name.split(".", 1)
+                if group not in self._modules:
+                    self.add_module(group, nn.ParameterDict())
+                self._modules[group][leaf] = param
             else:
                 self.register_parameter(name, param)
 
@@ -70,9 +110,24 @@ class Model(nn.Module):
     def init(self, generator: Optional[torch.Generator] = None, seed: int = 0) -> "Model":
         """Draw every parameter at random from ``generator`` (one on the
         model's device, seeded with ``seed``, if none is given)."""
+        cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        fresh = transformer.init_params(self.cfg, generator, device=self.device)
+        if cfg.family == "dense":
+            fresh = transformer.init_params(cfg, generator, device=self.device)
+        elif cfg.family == "hybrid":
+            fresh = hybrid.init_params(cfg, generator, device=self.device)
+        else:
+            # the reference draws the ssm family's embedding from a plain normal
+            embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
+                                device=self.device) * 0.02
+            layers = mamba2.init_mamba_layers(
+                generator, cfg.n_layers, cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_state, dtype=cfg.dtype, device=self.device,
+            )
+            fresh = {"embed": embed.to(cfg.dtype),
+                     **{f"mamba.{k}": v for k, v in layers.items()},
+                     "final_ln": torch.zeros(cfg.d_model, dtype=cfg.dtype, device=self.device)}
         with torch.no_grad():
             for name, p in self.named_parameters():
                 p.copy_(fresh.pop(name))
@@ -90,33 +145,83 @@ class Model(nn.Module):
             batch, max_len
         )
 
+    def _ssm_forward(
+        self, tokens: torch.Tensor, ssm_states: Optional[torch.Tensor] = None,
+        conv_states: Optional[torch.Tensor] = None, decode: bool = False,
+    ) -> Tuple[torch.Tensor, State]:
+        """The mamba stack of the ``ssm`` family: a loop over the stacked
+        ``mamba.*`` leaves.  States passed in are updated in place."""
+        cfg, params = self.cfg, self.params
+        h = params["embed"][tokens].to(cfg.dtype)
+        if ssm_states is None:
+            ssm_states, conv_states = mamba2.init_states(cfg, tokens.shape[0], self.device)
+        h = mamba2.run_stack(cfg, params["mamba"], h, range(cfg.n_layers), ssm_states,
+                             conv_states, decode, self.ssd_impl)
+        return rms_norm(h, params["final_ln"]), {"ssm": ssm_states, "conv": conv_states}
+
+    def _hybrid_kv(self, batch: int, max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed ``(apps, B, max_len, Hkv, Dh)`` caches in ``cfg.dtype``, as the
+        reference's hybrid keeps them (the dense family's are bfloat16)."""
+        cfg = self.cfg
+        shape = (hybrid.n_attn_applications(cfg), batch, max_len, cfg.n_kv_heads, cfg.dh)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int) -> Tuple[torch.Tensor, State]:
         """Processes the prompt; returns (hidden, decode state).  Attention
-        runs over the whole cache: unwritten slots are hidden by ``kp <= qp``."""
+        runs over the whole cache: unwritten slots are hidden by ``kp <= qp``.
+        ``max_len`` means nothing to the ssm family's state."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        caches = transformer.init_kv_cache(self.cfg, B, max_len, device=self.device)
+        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        if cfg.family == "ssm":
+            h, state = self._ssm_forward(tokens)
+            return h, {**state, "pos": pos}
+        if cfg.family == "hybrid":
+            h, state = hybrid.forward(
+                cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
+                kv_caches=self._hybrid_kv(B, max_len),
+                cache_positions=self._cache_positions(B, max_len),
+            )
+            return h, {**state, "pos": pos}
+        caches = transformer.init_kv_cache(cfg, B, max_len, device=self.device)
         h, caches = transformer.forward(
-            self.cfg, self.params, tokens, attn_impl=self.attn_impl,
+            cfg, self.params, tokens, attn_impl=self.attn_impl,
             kv_caches=caches, cache_positions=self._cache_positions(B, max_len),
         )
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         return h, {"kv": caches, "pos": pos}
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
-        """One new token per sequence against the cached state.  The KV cache
-        in ``state`` is updated in place; the returned state shares it."""
+        """One new token per sequence against the cached state.  The caches
+        and states in ``state`` are updated in place; the returned state
+        shares them."""
+        cfg = self.cfg
         B = tokens.shape[0]
+        pos = state["pos"] + 1
+        if cfg.family == "ssm":
+            h, new = self._ssm_forward(tokens, state["ssm"], state["conv"], decode=True)
+            return h, {**new, "pos": pos}
         kv = state["kv"]
+        cache_pos = self._cache_positions(B, kv[0].shape[2])
+        if cfg.family == "hybrid":
+            h, new = hybrid.forward(
+                cfg, self.params, tokens, positions=state["pos"][:, None],
+                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
+                cache_positions=cache_pos, ssm_states=state["ssm"],
+                conv_states=state["conv"], decode=True,
+            )
+            return h, {**new, "pos": pos}
         h, kv = transformer.forward(
-            self.cfg, self.params, tokens, positions=state["pos"][:, None],
-            attn_impl=self.attn_impl,
-            kv_caches=kv, cache_positions=self._cache_positions(B, kv[0].shape[2]),
+            cfg, self.params, tokens, positions=state["pos"][:, None],
+            attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos,
         )
-        return h, {"kv": kv, "pos": state["pos"] + 1}
+        return h, {"kv": kv, "pos": pos}
 
     @torch.no_grad()
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return transformer.lm_head(self.cfg, self.params, h)
+        if self.cfg.family == "dense":
+            return transformer.lm_head(self.cfg, self.params, h)
+        return h @ self.embed.T.to(h.dtype)   # ssm and hybrid tie their embedding

@@ -1,0 +1,167 @@
+"""Zamba2-style hybrid: Mamba2 backbone + a *shared* attention block.
+
+Counterpart of ``repro.models.hybrid`` (arXiv:2411.15242): a stack of Mamba2
+layers, interleaved every ``attn_period`` layers with a full attention block
+whose weights are SHARED across all applications.  Each application still
+needs its own KV cache (activations differ), so caches are stacked over
+applications, not layers.  Where the reference scans, the port loops over
+the stacked leading axis.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .attention import attention
+from .common import apply_rope, rms_norm, rope_sin_cos, swiglu, trunc_normal
+from .mamba2 import init_mamba_layers, init_states, layer_shapes, run_stack
+from .transformer import ModelConfig, _cache_index
+
+Params = Dict[str, Any]
+State = Dict[str, Any]
+
+
+def n_attn_applications(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_period if cfg.attn_period else 0
+
+
+def shared_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """``name -> shape`` of the one shared attention block (and its FFN)."""
+    D, Hq, Hkv, Dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
+    return {
+        "ln1": (D,), "wq": (D, Hq * Dh), "wk": (D, Hkv * Dh), "wv": (D, Hkv * Dh),
+        "wo": (Hq * Dh, D), "ln2": (D,), "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D),
+    }
+
+
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator, device: DeviceLike = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """Random parameters as a flat ``name -> tensor`` dict: ``embed``, the
+    ``mamba.*`` stack, one ``shared_attn.*`` set, ``final_ln``; drawn as the
+    reference draws them (truncated normal, std ``1/sqrt(fan_in)``, 0.02 for
+    ``embed``).  ``generator`` must live on ``device``."""
+    device = resolve_device(device)
+    dt = cfg.dtype
+    out: Dict[str, torch.Tensor] = {
+        "embed": trunc_normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt, device),
+    }
+    mamba = init_mamba_layers(generator, cfg.n_layers, cfg.d_model, cfg.ssm_heads,
+                              cfg.ssm_head_dim, cfg.ssm_state, dtype=dt, device=device)
+    out.update({f"mamba.{k}": v for k, v in mamba.items()})
+    for name, shape in shared_shapes(cfg).items():
+        if name.startswith("ln"):
+            out[f"shared_attn.{name}"] = torch.zeros(shape, dtype=dt, device=device)
+        else:
+            std = 1.0 / math.sqrt(shape[0])
+            out[f"shared_attn.{name}"] = trunc_normal(generator, shape, std, dt, device)
+    out["final_ln"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    L = cfg.n_layers
+    shapes: Dict[str, Tuple[int, ...]] = {"embed": (cfg.vocab, cfg.d_model)}
+    for k, s in layer_shapes(cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state).items():
+        shapes[f"mamba.{k}"] = (L,) + s
+    shapes.update({f"shared_attn.{k}": s for k, s in shared_shapes(cfg).items()})
+    shapes["final_ln"] = (cfg.d_model,)
+    return shapes
+
+
+def _shared_attn_block(
+    cfg: ModelConfig,
+    sp: Dict[str, torch.Tensor],
+    h: torch.Tensor,
+    positions: torch.Tensor,
+    attn_impl: str,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_positions: Optional[torch.Tensor] = None,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One application of the shared block; returns the new hidden states.
+    ``kv_cache`` is this application's ``(B, Skv, Hkv, Dh)`` pair and is
+    **updated in place** at ``positions[:, 0]`` (the reference returns a new
+    pair).  ``rope`` and ``cache_index`` are what :func:`forward` computes
+    once for every application; a lone call works them out itself."""
+    B, S, _ = h.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    x = rms_norm(h, sp["ln1"])
+    q = (x @ sp["wq"]).reshape(B, S, Hq, Dh)
+    k = (x @ sp["wk"]).reshape(B, S, Hkv, Dh)
+    v = (x @ sp["wv"]).reshape(B, S, Hkv, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta, sin_cos=rope)
+    k = apply_rope(k, positions, cfg.rope_theta, sin_cos=rope)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        rows, cols = cache_index if cache_index is not None else _cache_index(positions)
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
+        k_att, v_att, kv_pos = ck, cv, cache_positions
+    else:
+        k_att, v_att, kv_pos = k, v, positions
+    o = attention(q, k_att, v_att, positions, kv_pos, impl=attn_impl)
+    h = h + (o.reshape(B, S, -1) @ sp["wo"]).to(h.dtype)
+    x = rms_norm(h, sp["ln2"])
+    return h + (swiglu(x @ sp["w_gate"], x @ sp["w_up"]) @ sp["w_down"]).to(h.dtype)
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    attn_impl: str = "chunked",
+    ssd_impl: str = "chunked",
+    kv_caches: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (Apps,B,Skv,Hkv,Dh) x2
+    cache_positions: Optional[torch.Tensor] = None,
+    ssm_states: Optional[torch.Tensor] = None,   # (L, B, H, P, N)
+    conv_states: Optional[torch.Tensor] = None,  # (L, B, D_CONV-1, conv_dim)
+    decode: bool = False,
+) -> Tuple[torch.Tensor, State]:
+    """Returns (final hidden states, ``{"kv", "ssm", "conv"}``).
+
+    Groups of ``attn_period`` mamba layers, each followed by one application
+    of the shared block, then the tail layers when ``n_layers % attn_period``.
+    The states and caches passed in are updated **in place** and handed back;
+    without them, fresh zeroed states are made and returned (prefill).  As in
+    the dense path, a KV insert past the cache's end raises ``ValueError``
+    where the reference clamps.
+    """
+    B, S = tokens.shape
+    h = params["embed"][tokens].to(cfg.dtype)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    if ssm_states is None:
+        ssm_states, conv_states = init_states(cfg, B, tokens.device)
+    period = cfg.attn_period or (cfg.n_layers + 1)
+    apps = n_attn_applications(cfg)
+    if kv_caches is not None:
+        max_len = kv_caches[0].shape[2]
+        first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
+        if first < 0 or last + S > max_len:
+            raise ValueError(
+                f"KV cache of length {max_len} cannot take {S} token(s) starting at "
+                f"positions {first}..{last}"
+            )
+    # the same for every application: computed once
+    rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta) if apps else None
+    cache_index = None if kv_caches is None else _cache_index(positions)
+
+    layers = params["mamba"]
+    for app in range(apps):
+        h = run_stack(cfg, layers, h, range(app * period, (app + 1) * period),
+                      ssm_states, conv_states, decode, ssd_impl)
+        cache = None if kv_caches is None else (kv_caches[0][app], kv_caches[1][app])
+        h = _shared_attn_block(cfg, params["shared_attn"], h, positions, attn_impl,
+                               kv_cache=cache, cache_positions=cache_positions,
+                               rope=rope, cache_index=cache_index)
+    h = run_stack(cfg, layers, h, range(apps * period, cfg.n_layers),
+                  ssm_states, conv_states, decode, ssd_impl)
+    h = rms_norm(h, params["final_ln"])
+    return h, {"kv": kv_caches, "ssm": ssm_states, "conv": conv_states}

@@ -28,7 +28,7 @@ import torch
 
 from .. import obs
 from ..device import DeviceLike, resolve_device
-from ..models import Model, ModelConfig
+from ..models import Model, ModelConfig, param_dtypes
 from ..obs import Histogram
 
 State = Dict[str, Any]
@@ -61,17 +61,20 @@ class Server:
     """Single-device server.  ``params`` is a state dict in the reference's
     key names (``Model.state_dict()`` or :func:`repro_torch.convert.params_from_reference`);
     its tensors are adopted, not copied, when they already lie on ``device``
-    in the model's dtype.  Attention goes through ``attn_impl``: the CUDA
-    kernel by default, which on CPU tensors is its plain version."""
+    in the dtype the model declares for them (:func:`repro_torch.models.param_dtypes`).
+    Attention goes through ``attn_impl`` and the SSD scan of the ssm and
+    hybrid families through ``ssd_impl``: the CUDA kernels by default, which
+    on CPU tensors are their plain versions."""
 
     def __init__(
         self, model_cfg: ModelConfig, cfg: ServeConfig, params: Mapping[str, torch.Tensor],
-        device: DeviceLike = "cuda", attn_impl: str = "hopper",
+        device: DeviceLike = "cuda", attn_impl: str = "hopper", ssd_impl: str = "hopper",
     ):
         self.device = resolve_device(device)
-        self.model = Model(model_cfg, attn_impl=attn_impl, device=self.device)
+        self.model = Model(model_cfg, attn_impl=attn_impl, ssd_impl=ssd_impl, device=self.device)
+        dtypes = param_dtypes(model_cfg)
         adopted = {
-            name: t.detach().to(device=self.device, dtype=model_cfg.dtype)
+            name: t.detach().to(device=self.device, dtype=dtypes.get(name, model_cfg.dtype))
             for name, t in params.items()
         }
         self.model.load_state_dict(adopted, assign=True)
@@ -196,9 +199,11 @@ class Server:
 
     # -- slot surgery ------------------------------------------------------------------
     # State leaves keyed by their top-level name:
-    #   kv:   (L, B, S, H, Dh) x2   -> batch axis 1
-    #   pos:  (B,)                  -> batch axis 0
-    # (ssm / conv / enc keep the reference's axes for the families to come)
+    #   kv:   (L or apps, B, S, H, Dh) x2   -> batch axis 1
+    #   ssm:  (L, B, H, P, N)               -> batch axis 1
+    #   conv: (L, B, D_CONV-1, conv_dim)    -> batch axis 1
+    #   pos:  (B,)                          -> batch axis 0
+    # (enc keeps the reference's axis for the family to come)
     _BATCH_AXIS = {"kv": 1, "ssm": 1, "conv": 1, "pos": 0, "enc": 0}
 
     @classmethod

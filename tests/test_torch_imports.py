@@ -33,6 +33,9 @@ def test_every_module_is_found():
                  "repro_torch.models.transformer", "repro_torch.configs.base",
                  "repro_torch.configs.stablelm_3b", "repro_torch.configs.qwen2_7b",
                  "repro_torch.configs.granite_8b", "repro_torch.configs.gemma3_1b",
+                 "repro_torch.kernels.mamba2_ssd", "repro_torch.models.mamba2",
+                 "repro_torch.models.hybrid", "repro_torch.configs.mamba2_370m",
+                 "repro_torch.configs.zamba2_2_7b",
                  "repro_torch.runtime.serving", "repro_torch.convert", "repro_torch.device"):
         assert name in MODULES, name
 
@@ -70,9 +73,12 @@ def test_source_names_neither_jax_nor_the_reference_package(path):
 
 def test_cuda_sources_are_package_data():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    assert [p.name for p in sorted(csrc.iterdir())] == ["flash_attention.cu"]
-    text = (csrc / "flash_attention.cu").read_text()
-    assert "torch/extension.h" not in text and 'extern "C"' in text
+    assert [p.name for p in sorted(csrc.iterdir())] == ["flash_attention.cu", "mamba2_ssd.cu"]
+    for src in csrc.iterdir():
+        text = src.read_text()
+        assert "torch/extension.h" not in text and 'extern "C"' in text, src.name
+        # hand-written: no library of finished kernels inside the kernels
+        assert not re.search(r"cublas|cudnn|cutlass|at::|torch::", text, re.I), src.name
     assert 'repro_torch = ["kernels/csrc/*"]' in (ROOT / "pyproject.toml").read_text()
 
 

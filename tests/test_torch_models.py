@@ -392,10 +392,11 @@ def test_configs_equal_the_reference_field_for_field(arch):
 
 
 def test_arch_ids_list_only_what_is_ported():
-    assert sorted(tconfigs.ARCH_IDS) == sorted(DENSE)
+    ported = DENSE + ["mamba2_370m", "zamba2_2_7b"]
+    assert sorted(tconfigs.ARCH_IDS) == sorted(ported)
     assert set(tconfigs.ARCH_IDS) < set(jconfigs.ARCH_IDS)
-    assert sorted(tconfigs.all_configs()) == sorted(DENSE)
-    for arch in sorted(set(jconfigs.ARCH_IDS) - set(DENSE)):
+    assert sorted(tconfigs.all_configs()) == sorted(ported)
+    for arch in sorted(set(jconfigs.ARCH_IDS) - set(ported)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tconfigs.get_config(arch)
 
@@ -462,7 +463,7 @@ def test_convert_round_trip_and_checks():
 
 def test_families_and_options_of_later_slices_raise():
     dense = tconfigs.reduced_config("stablelm_3b")
-    for family in ("moe", "vlm", "ssm", "hybrid", "audio"):
+    for family in ("moe", "vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Model(dataclasses.replace(dense, family=family), device="cpu")
     moe = dataclasses.replace(dense, moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))

@@ -2,9 +2,11 @@
 
 The five requests of ``tests/test_runtime.py::test_server_continuous_batching``
 go through both servers with the same float32 weights (made with numpy from a
-seed and carried across).  Per-step logits must agree within 1e-4, and the
-greedy tokens must be equal wherever the reference's top-2 margin exceeds
-that tolerance (below it, either choice is right and the runs may part).
+seed and carried across), for the dense family and for the ssm and hybrid
+families (reduced mamba2_370m and zamba2_2_7b, through both kernels' paths).
+Per-step logits must agree within 1e-4, and the greedy tokens must be equal
+wherever the reference's top-2 margin exceeds that tolerance (below it, either
+choice is right and the runs may part).
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ from repro.runtime import ServeConfig as JServeConfig
 from repro.runtime import Server as JServer
 from repro.runtime.serving import Request as JRequest
 from repro_torch import convert, obs
-from repro_torch.models import transformer
+from repro_torch.models import param_shapes
 from repro_torch.runtime import Completion, Request, ServeConfig, Server
 
 torch.set_num_threads(1)
@@ -34,24 +36,34 @@ SERVE = dict(batch_slots=2, max_len=32, max_new_tokens=4, eos=-1)
 def _weights(tcfg, seed=0):
     rng = np.random.default_rng(seed)
     flat = {}
-    for name, shape in transformer.param_shapes(tcfg).items():
+    for name, shape in param_shapes(tcfg).items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf.startswith(("ln", "b")) or leaf == "final_ln":
+        noise = rng.standard_normal(shape)
+        if leaf == "a_log":      # mamba: decays around the reference's init
+            decays = np.log(np.linspace(1.0, 16.0, shape[-1]))
+            flat[name] = (decays + 0.1 * noise).astype(np.float32)
+            continue
+        if leaf == "d_skip":
+            flat[name] = (1.0 + 0.1 * noise).astype(np.float32)
+            continue
+        if leaf.startswith(("ln", "b")) or leaf in ("final_ln", "norm", "conv_b", "dt_bias"):
             std = 0.1
+        elif leaf == "conv_w":
+            std = 0.2
         else:
             std = 0.02 if leaf == "embed" else 1.0 / math.sqrt(shape[-2])
-        flat[name] = (rng.standard_normal(shape) * std).astype(np.float32)
+        flat[name] = (noise * std).astype(np.float32)
     return convert.params_to_reference({k: torch.from_numpy(v) for k, v in flat.items()})
 
 
-def _servers(arch="stablelm_3b", attn_impl="hopper", **serve_kw):
+def _servers(arch="stablelm_3b", attn_impl="hopper", ssd_impl="hopper", **serve_kw):
     kw = dict(SERVE, **serve_kw)
     tcfg = dataclasses.replace(tconfigs.reduced_config(arch), dtype=torch.float32)
     jcfg = dataclasses.replace(jconfigs.reduced_config(arch), dtype=jnp.float32)
     tree = _weights(tcfg)
     jparams = jax.tree.map(jnp.asarray, tree)
     server = Server(tcfg, ServeConfig(**kw), convert.params_from_reference(tree, tcfg, "cpu"),
-                    device="cpu", attn_impl=attn_impl)
+                    device="cpu", attn_impl=attn_impl, ssd_impl=ssd_impl)
     return server, JServer(jcfg, JServeConfig(**kw), jparams)
 
 
@@ -104,6 +116,23 @@ def test_server_matches_reference_on_continuous_batching(attn_impl):
     assert compared >= 5, "the runs parted before the first decode step"
     # with these weights no step is a near tie: the token lists are equal
     assert to_the_end
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b"])
+@pytest.mark.parametrize("ssd_impl", ["hopper", "chunked"])
+def test_server_matches_reference_on_ssm_and_hybrid(arch, ssd_impl):
+    """Reduced mamba2_370m (SSM state, conv state, no KV cache) and zamba2_2_7b
+    (both, and the shared attention block's stacked KV cache) through slot
+    recycling: the reference's greedy token lists, logits within 1e-4 a step."""
+    server, jserver = _servers(arch=arch, ssd_impl=ssd_impl)
+    calls, jcalls = _record(server, False), _record(jserver, True)
+    done = server.serve(_requests(Request))
+    jdone = jserver.serve(_requests(JRequest))
+    assert [c.uid for c in done] == [c.uid for c in jdone] == [0, 1, 2, 3, 4]
+    compared, to_the_end = _compare_runs(calls, jcalls, done, jdone)
+    assert compared >= 5, "the runs parted before the first decode step"
+    assert to_the_end
+    assert [c.tokens for c in done] == [c.tokens for c in jdone]
 
 
 def test_server_matches_reference_with_gqa_and_windows():
@@ -203,6 +232,23 @@ def test_set_slot_writes_in_place_on_the_batch_axis():
     spread = Server._map_state(lambda x, ax: x.repeat_interleave(3, dim=ax), one)
     assert spread["kv"][0].shape == (2, 3, 4, 1, 2) and spread["pos"].tolist() == [5, 5, 5]
     assert Server._BATCH_AXIS == JServer._BATCH_AXIS
+
+
+def test_server_adopts_float32_leaves_as_float32():
+    """A bfloat16 mamba model keeps a_log / d_skip / dt_bias in float32, as the
+    reference does; the server adopts them as they are, without a copy."""
+    tcfg = tconfigs.reduced_config("mamba2_370m")
+    state = convert.params_from_reference(_weights(tcfg), tcfg, "cpu")
+    server = Server(tcfg, ServeConfig(**SERVE), state, device="cpu")
+    for leaf in ("a_log", "d_skip", "dt_bias"):
+        assert server.model.mamba[leaf].dtype == torch.float32
+        assert server.model.mamba[leaf].data_ptr() == state[f"mamba.{leaf}"].data_ptr()
+    assert server.model.mamba["in_proj"].dtype == torch.bfloat16
+    assert server.model.ssd_impl == "hopper"
+    # float32 leaves handed over in bfloat16 are brought back to float32
+    rounded = {k: v.bfloat16() for k, v in state.items()}
+    assert Server(tcfg, ServeConfig(**SERVE), rounded, device="cpu").model.mamba["a_log"].dtype == \
+        torch.float32
 
 
 def test_server_adopts_weights_without_copying():
