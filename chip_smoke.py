@@ -29,10 +29,14 @@ points a user calls.  Each phase prints one JSON line:
 7. ``serve_zamba2``      the same on full-width zamba2_2_7b (54 mamba layers, a shared
                          attention block applied 9 times): both kernels on one path
 8. ``kernels``           one line ``{"kernels": [...]}``: for each kernel its launches on
-                         the three paths, error against the plain version, time, plain
-                         time, library time (``scaled_dot_product_attention`` for attention,
-                         a yardstick the port never calls; none exists for the SSD scan)
-                         and the card's bound, at the shapes the main paths use
+                         the three paths, error against the plain version, time (``ms``:
+                         eager calls between CUDA events, the host's issue time included),
+                         device time (``device_ms``: CUDA graphs), plain time, library time
+                         (``scaled_dot_product_attention`` under each backend that takes
+                         the mask, the fastest kept; a yardstick the port never calls; none
+                         exists for the SSD scan) and the card's bound (attention: also
+                         ``bound_visible_ms``, the work the positions leave visible), at
+                         the shapes the main paths use
 9. ``serve_throughput``  per model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
@@ -101,6 +105,7 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0: a serving path starts here."""
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    fa.flash_attention.launches_by_path = {p: 0 for p in fa.PATHS}
 
 
 def read_counts() -> dict:
@@ -169,24 +174,40 @@ def compare(got, want, tol):
     return float(err.max()), ok
 
 
-def check_case(name, args, dtype, failures, results, **kw):
+def launched_path(before):
+    """The one path whose count rose since ``before`` (a copy of ``launches_by_path``)."""
+    grew = [p for p, n in fa.flash_attention.launches_by_path.items() if n != before[p]]
+    require(len(grew) == 1, f"expected one path to launch, got {grew}")
+    return grew[0]
+
+
+def check_case(name, args, dtype, failures, results, want_path=None, splits=None, **kw):
+    """One launch against the plain version of the same path and the oracle;
+    returns the kernel's output.  ``splits`` goes to the wrapper, which alone
+    takes the split path's count."""
     q, k, v, qpos, kpos = args
-    before = fa.flash_attention.launches
-    got = ops.flash_attention(q, k, v, qpos, kpos, **kw)
+    before, by_path = fa.flash_attention.launches, dict(fa.flash_attention.launches_by_path)
+    if splits is None:
+        got = ops.flash_attention(q, k, v, qpos, kpos, **kw)
+    else:
+        got = fa.flash_attention(q, k, v, qpos, kpos, window=kw.get("window"),
+                                 chunk=kw.get("chunk_attn"), splits=splits)
     torch.cuda.synchronize()
     require(fa.flash_attention.launches == before + 1, "the wrapper did not launch the kernel")
+    path = launched_path(by_path)
     plain_kw = dict(window=kw.get("window"), chunk=kw.get("chunk_attn"),
-                    block_q=kw.get("block_q"), block_kv=kw.get("block_kv"))
+                    block_q=kw.get("block_q"), block_kv=kw.get("block_kv"), splits=splits)
     plain = fa.flash_attention_plain(q, k, v, qpos, kpos, **plain_kw)
     want = oracle(q, k, v, qpos, kpos, kw.get("window"), kw.get("chunk_attn"))
     torch.cuda.synchronize()
     err_plain, ok_plain = compare(got, plain, TOL[dtype])
     err_oracle, ok_oracle = compare(got, want, TOL[dtype])
-    results.append({"case": name, "dtype": str(dtype).replace("torch.", ""),
-                    "err_vs_plain": err_plain, "err_vs_oracle": err_oracle,
-                    "ok": ok_plain and ok_oracle})
-    if not (ok_plain and ok_oracle):
-        failures.append(name)
+    ok = ok_plain and ok_oracle and (want_path is None or path == want_path)
+    results.append({"case": name, "dtype": str(dtype).replace("torch.", ""), "path": path,
+                    "err_vs_plain": err_plain, "err_vs_oracle": err_oracle, "ok": ok})
+    if not ok:
+        failures.append(f"{name} ({results[-1]['dtype']}, {path})")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -206,17 +227,27 @@ def phase_device(ctx):
 
 
 _MANGLED = re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+_MANGLED_MMA = re.compile(r"flash_attention_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
+_MANGLED_SPLIT = re.compile(r"flash_attention_split_kernelILi(\d+)ELi(\d+)E")
 _MANGLED_SSD = re.compile(r"mamba2_ssd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 
 
 def readable(mangled: str) -> str:
-    """``flash_attention_kernel<T, NJ, RM, NKJ>`` as dtype, head-width class and
+    """The attention kernel's three paths as path, dtype, head-width class and
     tile; ``mamba2_ssd_kernel<T, N, PS>`` as dtype, state width and p_block."""
     m = _MANGLED.search(mangled)
     if m:
         t, nj, rm, nkj = m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
-        return (f"flash_attention<{'float' if t == 'f' else 'bf16'}, Dh<={16 * nj}, "
+        return (f"flash_attention<fma, {'float' if t == 'f' else 'bf16'}, Dh<={16 * nj}, "
                 f"BQ={16 * rm}, BKV={16 * nkj}>")
+    m = _MANGLED_MMA.search(mangled)
+    if m:
+        dhc, bkv, qreg = int(m.group(1)), int(m.group(2)), m.group(3) == "1"
+        return (f"flash_attention<mma, bf16, Dh<={dhc}, BQ=64, BKV={bkv}, "
+                f"Q in {'registers' if qreg else 'shared memory'}>")
+    m = _MANGLED_SPLIT.search(mangled)
+    if m:
+        return f"flash_attention<split, bf16, Dh<={m.group(1)}, rows<={m.group(2)}>"
     m = _MANGLED_SSD.search(mangled)
     if m:
         t, n, ps = m.group(1), int(m.group(2)), int(m.group(3))
@@ -230,10 +261,28 @@ def phase_build(ctx):
     res = []
     for r in info.resources():
         entry = {**r, "kernel": readable(r["kernel"])}
+        # dynamic shared memory, by the formulas checked below (attention: at
+        # Dh = the class, Skv = 1024, the chooser's stages)
         ssd_kernel = _MANGLED_SSD.search(r["kernel"])
-        if ssd_kernel:   # its dynamic shared memory, by the formula checked below
+        if ssd_kernel:
             entry["dynamic_smem_bytes"] = ssd.smem_bytes(int(ssd_kernel.group(2)),
                                                          int(ssd_kernel.group(3)))
+        fma_k, mma_k = _MANGLED.search(r["kernel"]), _MANGLED_MMA.search(r["kernel"])
+        split_k = _MANGLED_SPLIT.search(r["kernel"])
+        if fma_k:
+            entry["path"] = "fma"
+            entry["dynamic_smem_bytes"] = fa.smem_bytes(
+                16 * int(fma_k.group(2)), 16 * int(fma_k.group(3)), 16 * int(fma_k.group(4)))
+        if mma_k:
+            entry["path"], entry["dh_class"] = "mma", int(mma_k.group(1))
+            entry["stages"] = fa.MMA_STAGES
+            entry["dynamic_smem_bytes"] = fa.mma_smem_bytes(
+                int(mma_k.group(1)), int(mma_k.group(2)), 1024)
+        if split_k:
+            dhc, rc = int(split_k.group(1)), int(split_k.group(2))
+            entry["path"], entry["dh_class"] = "split", dhc
+            entry["stages"] = fa.split_stages(dhc)
+            entry["dynamic_smem_bytes"] = fa.split_smem_bytes(dhc, rc, 1024)
         res.append(entry)
     require(res, "ptxas reported no kernel")
     ctx["resources"] = {r["kernel"]: r for r in res}
@@ -245,21 +294,45 @@ def phase_build(ctx):
             "max_registers": max((r["registers"] for r in mine), default=None),
             "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
         }
+    by_path = {}
+    for path in fa.PATHS:
+        mine = [r for r in res if r.get("path") == path]
+        by_path[path] = {
+            "instantiations": len(mine),
+            "registers": {r["kernel"]: r["registers"] for r in mine},
+            "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
+        }
     emit("build", seconds=round(info.seconds or time.perf_counter() - t0, 3), reused=info.reused,
          so=os.path.relpath(info.path), sources=[p.name for p in _build.sources()],
          kernels=len(res), max_registers=max(r["registers"] for r in res),
          spill_bytes=sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in res),
-         by_kernel=by_kernel, resources=res)
-    # the chooser's shared-memory formula is the kernel's own
+         by_kernel=by_kernel, attention_by_path=by_path, resources=res)
+    # the new paths keep their state in registers at the main paths' head widths
+    spilled = [r["kernel"] for r in res if r.get("dh_class") in (80, 128)
+               and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
+    require(not spilled, f"spills at Dh = 80 / 128: {spilled}")
+    # fma: fp32 only, 4 head-width classes x 4 tiles; mma: 4 x 2 KV tiles;
+    # split: 4 x 4 row classes
+    require((by_path["fma"]["instantiations"], by_path["mma"]["instantiations"],
+             by_path["split"]["instantiations"]) == (16, 8, 16),
+            f"the build's instantiations by path: {[len(v['registers']) for v in by_path.values()]}")
+    # the chooser's shared-memory formulas are the kernel's own
     lib = _build.load()
-    lib.repro_flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.repro_flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.repro_flash_attention_smem_bytes.restype = ctypes.c_longlong
-    for dh in (16, 80, 128, 256):
+    smem_c = lib.repro_flash_attention_smem_bytes
+    for dh in (16, 80, 128, 144, 256):
         for bq in fa.TILE_Q:
             for bkv in fa.TILE_KV:
-                require(lib.repro_flash_attention_smem_bytes(dh, bq, bkv)
-                        == fa.smem_bytes(dh, bq, bkv),
+                require(smem_c(0, dh, bq, bkv, 1024) == fa.smem_bytes(dh, bq, bkv),
                         f"shared-memory formulas differ at Dh={dh}, tile ({bq}, {bkv})")
+        for skv in (1, 1000, 4097):
+            for bkv in fa.MMA_TILE_KV:
+                require(smem_c(1, dh, 64, bkv, skv) == fa.mma_smem_bytes(dh, bkv, skv),
+                        f"mma shared-memory formulas differ at Dh={dh}, BKV={bkv}")
+            for rc in fa.SPLIT_ROWS:
+                require(smem_c(2, dh, rc, 32, skv) == fa.split_smem_bytes(dh, rc, skv),
+                        f"split shared-memory formulas differ at Dh={dh}, rows={rc}")
     lib.repro_mamba2_ssd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.repro_mamba2_ssd_smem_bytes.restype = ctypes.c_longlong
     for n in ssd.STATE_WIDTHS:
@@ -281,62 +354,138 @@ ATTN_SHAPES = [
 ]
 
 
+def serve_lengths(batch=8):
+    """Decode slot lengths of the serving phases: the smoke prompts (64-512
+    tokens) plus up to 32 new tokens, drawn from seed 1."""
+    return np.random.default_rng(1).integers(64, 545, size=batch)
+
+
 def phase_kernel_vs_plain(ctx):
     failures, results = [], []
     f32, bf16 = torch.float32, torch.bfloat16
+    both = (f32, bf16)
     for shape in ATTN_SHAPES:
-        for dtype in (f32, bf16):
+        for dtype in both:
             check_case(f"shape{shape}", make_case(*shape, dtype), dtype, failures, results,
                        block_q=64, block_kv=64)
     for window in (16, 64):
-        check_case(f"window{window}", make_case(2, 128, 128, 4, 2, 64, f32), f32, failures,
-                   results, window=window, block_q=64, block_kv=64)
+        for dtype in both:
+            check_case(f"window{window}", make_case(2, 128, 128, 4, 2, 64, dtype), dtype,
+                       failures, results, window=window, block_q=64, block_kv=64)
     for chunk in (32, 64):
-        check_case(f"chunk{chunk}", make_case(2, 128, 128, 4, 2, 64, f32), f32, failures,
-                   results, chunk_attn=chunk, block_q=64, block_kv=64)
+        for dtype in both:
+            check_case(f"chunk{chunk}", make_case(2, 128, 128, 4, 2, 64, dtype), dtype,
+                       failures, results, chunk_attn=chunk, block_q=64, block_kv=64)
     for bq, bkv in ((16, 32), (16, 64), (64, 32), (64, 64)):
-        check_case(f"tile({bq},{bkv})", make_case(1, 128, 128, 2, 2, 64, f32), f32, failures,
-                   results, block_q=bq, block_kv=bkv)
+        for dtype in both:
+            check_case(f"tile({bq},{bkv})", make_case(1, 128, 128, 2, 2, 64, dtype), dtype,
+                       failures, results, block_q=bq, block_kv=bkv)
     for sq, skv in ((1, 512), (7, 19), (100, 300), (37, 1024)):
-        for dtype in (f32, bf16):
+        for dtype in both:
             check_case(f"ragged({sq},{skv})", make_case(2, sq, skv, 4, 2, 64, dtype), dtype,
                        failures, results)
-    check_case("ragged+window32", make_case(2, 100, 100, 4, 2, 64, f32), f32, failures, results,
-               window=32)
-    check_case("ragged+chunk64", make_case(1, 200, 200, 2, 2, 64, f32), f32, failures, results,
-               chunk_attn=64)
-    check_case("unrestricted=BIG", make_case(1, 129, 257, 2, 1, 128, f32), f32, failures, results,
-               window=fa.BIG, chunk_attn=fa.BIG)
-    for dh in (16, 48, 96, 112, 160, 256):
-        check_case(f"dh{dh}", make_case(1, 70, 150, 4, 2, dh, f32), f32, failures, results)
+    for dtype in both:
+        check_case("ragged+window32", make_case(2, 100, 100, 4, 2, 64, dtype), dtype, failures,
+                   results, window=32)
+        check_case("ragged+chunk64", make_case(1, 200, 200, 2, 2, 64, dtype), dtype, failures,
+                   results, chunk_attn=64)
+        check_case("unrestricted=BIG", make_case(1, 129, 257, 2, 1, 128, dtype), dtype, failures,
+                   results, window=fa.BIG, chunk_attn=fa.BIG)
+        for dh in (16, 48, 96, 112, 160, 256):
+            check_case(f"dh{dh}", make_case(1, 70, 150, 4, 2, dh, dtype), dtype, failures, results)
+            check_case(f"dh{dh} decode", make_case(2, 1, 150, 4, 2, dh, dtype), dtype, failures,
+                       results)
     # stablelm_3b's heads at the two shapes of the main path
-    for dtype in (f32, bf16):
+    for dtype in both:
         check_case("dh80 prefill", make_case(1, 512, 1024, 32, 32, 80, dtype), dtype, failures,
-                   results)
+                   results, want_path="fma" if dtype == f32 else "mma")
         check_case("dh80 decode", make_case(8, 1, 1024, 32, 32, 80, dtype), dtype, failures,
-                   results)
+                   results, want_path="fma" if dtype == f32 else "split")
     # decode with unequal slot lengths: one query row a slot, each at its own position
     lengths = np.random.default_rng(1).integers(1, 1024, size=(8, 1))
-    for dtype in (f32, bf16):
+    for dtype in both:
         check_case("decode unequal positions",
                    make_case(8, 1, 1024, 32, 32, 80, dtype, q_positions=lengths), dtype,
                    failures, results)
+    # grouped-query decode by rows: qwen2_7b (28/4) and granite_8b (32/8) heads
+    for hq, hkv in ((28, 4), (32, 8)):
+        check_case(f"GQA {hq}/{hkv} decode unequal",
+                   make_case(8, 1, 1024, hq, hkv, 128, bf16,
+                             q_positions=serve_lengths()[:, None] - 1),
+                   bf16, failures, results, want_path="split")
     # every key masked (query positions before the first key): the mean of the v rows
-    check_case("all keys masked", make_case(1, 5, 70, 2, 2, 64, f32,
-                                            q_positions=np.full((1, 5), -3)), f32,
-               failures, results)
+    for dtype in both:
+        check_case("all keys masked", make_case(1, 5, 70, 2, 2, 64, dtype,
+                                                q_positions=np.full((1, 5), -3)), dtype,
+                   failures, results)
+        check_case("all keys masked, 70 rows", make_case(1, 70, 200, 2, 2, 64, dtype,
+                                                         q_positions=np.full((1, 70), -3)),
+                   dtype, failures, results)
+    # tile skipping: serve-like positions, a window that starts mid-tile, and a
+    # fully masked row in a block next to tiles the other blocks skip
+    check_case("skip: serve prefill", make_case(1, 512, 1024, 32, 32, 80, bf16,
+                                                q_positions=np.arange(512)[None]),
+               bf16, failures, results, want_path="mma")
+    check_case("skip: serve decode", make_case(8, 1, 1024, 32, 32, 80, bf16,
+                                               q_positions=serve_lengths()[:, None] - 1),
+               bf16, failures, results, want_path="split")
+    for dtype in both:
+        qp = np.arange(300, 400)[None].repeat(2, 0)
+        check_case("skip: window 77 mid-tile", make_case(2, 100, 1024, 4, 2, 64, dtype,
+                                                         q_positions=qp),
+                   dtype, failures, results, window=77)
+        check_case("skip: window 77 decode", make_case(2, 1, 1024, 4, 2, 64, dtype,
+                                                       q_positions=[[333], [700]]),
+                   dtype, failures, results, window=77)
+    qp = np.arange(0, 200)[None].copy()
+    qp[0, 70] = -3                          # row 70 (second block) sees nothing
+    check_case("skip: masked row beside skipped tiles", make_case(1, 200, 1024, 2, 2, 64, bf16,
+                                                                  q_positions=qp),
+               bf16, failures, results, want_path="mma")
+    check_case("skip: masked slot beside skipped tiles",
+               make_case(3, 1, 1024, 4, 2, 64, bf16, q_positions=[[40], [-3], [500]]),
+               bf16, failures, results, want_path="split")
+    # split-count overrides agree with one split (and each with its plain version)
+    for hq, hkv, dh in ((32, 32, 80), (28, 4, 128)):
+        args = make_case(8, 1, 1024, hq, hkv, dh, bf16, q_positions=serve_lengths()[:, None] - 1)
+        one = check_case(f"splits=1 {hq}/{hkv}", args, bf16, failures, results, splits=1,
+                         want_path="split")
+        for n in (2, 5, 13, 64):
+            got = check_case(f"splits={n} {hq}/{hkv}", args, bf16, failures, results, splits=n,
+                             want_path="split")
+            err, ok = compare(got, one, TOL[bf16])
+            results.append({"case": f"splits={n} vs 1 {hq}/{hkv}", "dtype": "bfloat16",
+                            "path": "split", "err_vs_plain": err, "ok": ok})
+            if not ok:
+                failures.append(f"splits={n} vs 1 {hq}/{hkv}")
+    # the same inputs in both dtypes: fp32 takes fma, bf16 the path its rows give
+    for dtype in both:
+        bf = dtype == bf16
+        check_case("GQA 8/2 decode", make_case(4, 1, 600, 8, 2, 80, dtype), dtype, failures,
+                   results, want_path="split" if bf else "fma")
+        check_case("GQA 8/2, 3 queries (12 rows)", make_case(2, 3, 333, 8, 2, 128, dtype), dtype,
+                   failures, results, want_path="split" if bf else "fma")
+        check_case("GQA 8/2, 5 queries (20 rows)", make_case(2, 5, 333, 8, 2, 128, dtype), dtype,
+                   failures, results, want_path="mma" if bf else "fma")
+        check_case("prefill 100", make_case(1, 100, 300, 4, 4, 80, dtype), dtype, failures,
+                   results, want_path="mma" if bf else "fma")
     # strided operands: a window of a longer cache and every other head, no copy
-    q, k, v, qpos, kpos = make_case(2, 33, 300, 8, 4, 64, bf16)
-    check_case("strided views", (q[:, :, ::2], k[:, 40:240, ::2], v[:, 40:240, ::2], qpos,
-                                 kpos[:, 40:240]), bf16, failures, results)
-    # operands that do not start on a 16-byte boundary: the scalar loads
-    for dtype in (f32, bf16):
-        q, k, v, qpos, kpos = make_case(2, 37, 300, 4, 2, 80, dtype)
-        check_case("misaligned operands", (misaligned(q), misaligned(k), misaligned(v), qpos,
-                                           kpos), dtype, failures, results)
-    emit("kernel_vs_plain", cases=len(results), failed=failures,
-         max_err_fp32=max(r["err_vs_oracle"] for r in results if r["dtype"] == "float32"),
-         max_err_bf16=max(r["err_vs_oracle"] for r in results if r["dtype"] == "bfloat16"),
+    for sq in (33, 1):
+        q, k, v, qpos, kpos = make_case(2, sq, 300, 8, 4, 64, bf16)
+        check_case(f"strided views Sq={sq}", (q[:, :, ::2], k[:, 40:240, ::2], v[:, 40:240, ::2],
+                                              qpos, kpos[:, 40:240]), bf16, failures, results)
+    # operands that do not start on a 16-byte boundary: the element-wise loads
+    for dtype in both:
+        for sq in (37, 1):
+            q, k, v, qpos, kpos = make_case(2, sq, 300, 4, 2, 80, dtype)
+            check_case(f"misaligned operands Sq={sq}", (misaligned(q), misaligned(k),
+                                                        misaligned(v), qpos, kpos),
+                       dtype, failures, results)
+    paths = {p: sum(r.get("path") == p for r in results) for p in fa.PATHS}
+    require(all(paths.values()), f"a path was never checked: {paths}")
+    emit("kernel_vs_plain", cases=len(results), failed=failures, cases_by_path=paths,
+         max_err_fp32=max(r.get("err_vs_oracle", 0) for r in results if r["dtype"] == "float32"),
+         max_err_bf16=max(r.get("err_vs_oracle", 0) for r in results if r["dtype"] == "bfloat16"),
          tolerance={"float32": 2e-5, "bfloat16": 2e-2}, results=results)
     require(not failures, f"kernel disagrees on: {failures}")
 
@@ -348,6 +497,8 @@ def phase_kernel_vs_plain(ctx):
         (lambda: ops.flash_attention(q, k.bfloat16(), v.bfloat16(), qpos, kpos), TypeError),
         (lambda: ops.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v,
                                      qpos, kpos), ValueError),
+        (lambda: fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), qpos, kpos,
+                                    splits=0), ValueError),
         (lambda: ops.flash_attention(q.requires_grad_(), k, v, qpos, kpos), RuntimeError),
     ):
         before = fa.flash_attention.launches
@@ -567,9 +718,11 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_counts()        # ... and ends here
+    attn_paths = dict(fa.flash_attention.launches_by_path)
     # this path's own: the memory held before its model was made is not counted
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
     ctx.setdefault("launches", {})[phase] = launches
+    ctx.setdefault("attention_paths", {})[phase] = attn_paths
     ctx.setdefault("servers", {})[cfg.name] = server
 
     require([c.uid for c in done] == list(range(SERVE["n_requests"])), "completions out of order")
@@ -582,6 +735,9 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     require(launches == want, (
         f"{cfg.name}: launches {launches}, expected {want} for {steps['prefill']} prefills and "
         f"{forwards} forward passes: a kernel call went around its kernel"))
+    if launches["flash_attention"]:  # bf16 serving: prompts on mma, decode steps on split
+        require(attn_paths["fma"] == 0 and attn_paths["mma"] > 0 and attn_paths["split"] > 0,
+                f"{cfg.name}: attention paths {attn_paths}, expected mma and split only")
 
     # the same logits through the plain PyTorch paths, on the card
     tokens = torch.from_numpy(requests[0].prompt[None]).to(dev)
@@ -636,6 +792,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
          requests=len(done), prompt_lengths=[int(n) for n in lengths],
          tokens=sum(len(c.tokens) for c in done), prefills=steps["prefill"],
          decode_steps=steps["decode"], kernel_launches=launches, expected_launches=want,
+         attention_launches_by_path=attn_paths,
          prefill_ms_mean=round(float(np.mean(step_ms["prefill"])), 3),
          decode_step_ms_mean=round(float(np.mean(step_ms["decode"])), 3),
          decode_step_ms_p50=round(float(np.median(step_ms["decode"])), 3),
@@ -705,6 +862,37 @@ def time_ms(fn, warmup=3, iters=20):
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters=20, replays=3, strict=True):
+    """Device time of one call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two events.  Unlike ``time_ms``
+    this leaves out the host's time to issue each call, which at decode shapes
+    is longer than the kernel.  ``strict`` captures in the global mode, where a
+    call that synchronised or read a value back would fail the capture: so a
+    time of one of the port's wrappers also shows that it needs neither.  The
+    library's calls are captured in the relaxed mode (their safety is not
+    what is checked here)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="global" if strict else "relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (iters * replays)
+
+
 def bound(q, k, v, qpos, kpos):
     """Least time the card could take: every input read once and the output
     written once at the memory rate, or the two products' operations
@@ -719,46 +907,139 @@ def bound(q, k, v, qpos, kpos):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def bound_visible(q, k, v, qpos, kpos):
+    """The same bound counting only the K / V rows that some query row sees and
+    the (query, key) pairs that are visible: the work these positions need."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    mask = ref.attention_mask(qpos[:, :, None], kpos[:, None, :])
+    pairs = int(mask.sum())
+    kv_rows = int(mask.any(1).sum())
+    nbytes = 2 * q.numel() * q.element_size() + 2 * kv_rows * Hkv * Dh * k.element_size()
+    nbytes += 4 * (B * Sq + k.shape[1] * B)
+    flops = 4 * Hq * Dh * pairs
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"visible_pairs": pairs, "visible_kv_rows": kv_rows, "bytes_visible": nbytes,
+            "flops_visible": flops, "bound_visible_ms": max(t_bytes, t_ops),
+            "bound_visible_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_times(qt, kt, vt, mask, math=True):
+    """``scaled_dot_product_attention`` under each backend that admits a boolean
+    mask, timed as the kernel is (eager ``time_ms`` and device ``graph_ms``); a
+    backend that refuses the call is reported as refused.  ``library_ms`` is
+    the fastest eager time, ``library_device_ms`` the fastest device time.
+    ``math`` False leaves out the backend that builds the whole score matrix."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    eager, device, refused = {}, {}, {}
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION] + ([SDPBackend.MATH] if math else [])
+    for backend in backends:
+        try:
+            with sdpa_kernel([backend]):
+                sdpa(qt, kt, vt, attn_mask=mask)
+                torch.cuda.synchronize()
+                eager[backend.name] = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+                device[backend.name] = graph_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask),
+                                                strict=False)
+        except RuntimeError as exc:
+            refused[backend.name] = str(exc).splitlines()[0][:120]
+    require(eager, "no SDPA backend took the boolean mask")
+    best, best_dev = min(eager, key=eager.get), min(device, key=device.get)
+    return {"library_ms": eager[best], "library_backend": best,
+            "library_device_ms": device[best_dev], "library_device_backend": best_dev,
+            "library_backends_ms": eager, "library_backends_device_ms": device,
+            "library_backends_refused": refused}
+
+
+#: the attention kernel's timed shapes (bf16, stablelm_3b's heads): two whose
+#: queries see every key of a full cache, two the serving path sends, and a
+#: 4,096-token causal prompt, whose grid (2,048 mma blocks) fills the card many
+#: times over where the serving shapes' 256 blocks are one wave
+ATTN_TIMED = {
+    "decode": (8, 1, 1024, 32, 32, 80),
+    "prefill": (1, 512, 1024, 32, 32, 80),
+    "serve_decode": (8, 1, 1024, 32, 32, 80),
+    "serve_prefill": (1, 512, 1024, 32, 32, 80),
+    "long_prefill": (1, 4096, 4096, 32, 32, 80),
+}
+
+
 def phase_kernels(ctx):
-    shapes = {"prefill": (1, 512, 1024, 32, 32, 80), "decode": (8, 1, 1024, 32, 32, 80)}
     rows = {}
-    for name, shape in shapes.items():
+    for name, shape in ATTN_TIMED.items():
         q, k, v, qpos, kpos = make_case(*shape, torch.bfloat16)
         if name == "decode":   # the query is the newest token of a full cache
             qpos = torch.full((shape[0], 1), shape[2] - 1, dtype=torch.int32, device=q.device)
+        elif name == "serve_decode":   # slots of 64-544 tokens in a 1,024-slot cache
+            qpos = torch.as_tensor(serve_lengths(shape[0])[:, None] - 1, dtype=torch.int32,
+                                   device=q.device)
+        elif name in ("serve_prefill", "long_prefill"):  # a prompt from position 0
+            qpos = torch.arange(shape[1], dtype=torch.int32, device=q.device)[None]
+        plan = fa.choose_tile(shape[1], shape[2], shape[5], dtype=q.dtype,
+                              groups=shape[3] // shape[4], batch_kv_heads=shape[0] * shape[4])
         got = ops.flash_attention(q, k, v, qpos, kpos)
         plain = fa.flash_attention_plain(q, k, v, qpos, kpos)
         err, ok = compare(got, plain, TOL[torch.bfloat16])
         require(ok, f"kernel disagrees with its plain version at the {name} shape")
         mask = ref.attention_mask(qpos[:, None, :, None], kpos[:, None, None, :])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = sdpa(qt, kt, vt, attn_mask=mask).transpose(1, 2)
-        err_lib, _ = compare(got, lib, TOL[torch.bfloat16])
-        # the same kernel on copies that are not 16-byte aligned: its scalar loads
+        lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        err_lib, _ = compare(got, lib.transpose(1, 2), TOL[torch.bfloat16])
+        # the same kernel on copies that are not 16-byte aligned: its element-wise loads
         qm, km, vm = misaligned(q), misaligned(k), misaligned(v)
         err_m, ok = compare(ops.flash_attention(qm, km, vm, qpos, kpos), got, 0.0)
-        require(ok, f"scalar and 16-byte loads disagree at the {name} shape ({err_m})")
-        # in turns: plain, scalar, kernel, kernel, scalar, plain; the library call last
-        t_plain = [time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos), 1, 5)]
-        t_scalar = [time_ms(lambda: ops.flash_attention(qm, km, vm, qpos, kpos))]
-        t_kernel = [time_ms(lambda: ops.flash_attention(q, k, v, qpos, kpos)) for _ in range(2)]
-        t_scalar.append(time_ms(lambda: ops.flash_attention(qm, km, vm, qpos, kpos)))
-        t_plain.append(time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos), 1, 5))
-        t_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        require(ok, f"element-wise and 16-byte loads disagree at the {name} shape ({err_m})")
+
+        def run_kernel():
+            return ops.flash_attention(q, k, v, qpos, kpos)
+
+        def run_plain():
+            return fa.flash_attention_plain(q, k, v, qpos, kpos)
+
+        def run_scalar():
+            return ops.flash_attention(qm, km, vm, qpos, kpos)
+
+        # in turns, eager calls between CUDA events (the host's time to issue
+        # each call included; the kernel's earlier times were taken so): plain,
+        # scalar, kernel, kernel, scalar, plain; then device times from CUDA graphs
+        t_plain = [time_ms(run_plain, 1, 5)]
+        t_scalar = [time_ms(run_scalar)]
+        t_kernel = [time_ms(run_kernel) for _ in range(2)]
+        t_scalar.append(time_ms(run_scalar))
+        t_plain.append(time_ms(run_plain, 1, 5))
+        d_kernel = [graph_ms(run_kernel) for _ in range(2)]
+        d_scalar = graph_ms(run_scalar)
         rows[name] = {"shape": dict(zip(("B", "Sq", "Skv", "Hq", "Hkv", "Dh"), shape)),
-                      "dtype": "bfloat16", "tile": fa.choose_tile(shape[1], shape[2], shape[5])[:2],
+                      "dtype": "bfloat16", "path": plan.path, "plan": dataclasses.asdict(plan),
+                      "query_positions": ("the last of a full cache" if name in ("decode", "prefill")
+                                          else "a prompt from position 0" if name == "long_prefill"
+                                          else "what Server.serve sends"),
                       "max_abs_err": err, "err_vs_library": err_lib,
                       "kernel_ms": min(t_kernel), "kernel_ms_runs": t_kernel,
                       "kernel_ms_scalar_loads": min(t_scalar),
-                      "plain_ms": min(t_plain), "library_ms": t_lib, **bound(q, k, v, qpos, kpos)}
-        rows[name]["roofline_share"] = rows[name]["bound_ms"] / rows[name]["kernel_ms"]
+                      "device_ms": min(d_kernel), "device_ms_runs": d_kernel,
+                      "device_ms_scalar_loads": d_scalar,
+                      "timing": "*_ms: CUDA events around 20 eager calls, the host's issue "
+                                "time included; *device_ms: device time of one call, from "
+                                "CUDA graphs of 20 calls",
+                      "plain_ms": min(t_plain),
+                      **library_times(qt, kt, vt, mask, math=name != "long_prefill"),
+                      **bound(q, k, v, qpos, kpos), **bound_visible(q, k, v, qpos, kpos)}
+        r = rows[name]
+        r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+        r["device_roofline_share"] = r["bound_ms"] / r["device_ms"]
+        r["device_visible_roofline_share"] = r["bound_visible_ms"] / r["device_ms"]
     dec = rows["decode"]   # 31 of 32 forward passes of a request are decode steps
     attn = {"name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES, **path_launches(ctx, "flash_attention"),
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": dec["kernel_ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
             "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+            "library_backend": dec["library_backend"], "device_ms": dec["device_ms"],
+            "library_device_ms": dec["library_device_ms"], "path": dec["path"],
             "top_level_shape": "decode", "card": ctx.get("card"), "shapes": rows}
     ctx["kernels_line"] = {"kernels": [attn, ssd_entry(ctx)]}
     if ctx.get("launches"):
@@ -770,7 +1051,10 @@ def phase_kernels(ctx):
 def path_launches(ctx, name):
     """A kernel's launches on the serving paths that ran: the sum and each path's."""
     by_path = {phase: counts[name] for phase, counts in ctx.get("launches", {}).items()}
-    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+    out = {"launches": sum(by_path.values()), "launches_by_path": by_path}
+    if name == "flash_attention":
+        out["launches_by_kernel_path"] = ctx.get("attention_paths", {})
+    return out
 
 
 def ssd_bound(x, dt, a, bm, cm, y, h_last):
@@ -808,20 +1092,22 @@ def ssd_entry(ctx):
             return lambda: ops.mamba2_ssd(*args, p_block=ps, out_dtype=torch.float32)
 
         plain = lambda: ssd.ssd_plain(*args, out_dtype=torch.float32)   # noqa: E731
-        # in turns: plain, kernel, other splits, kernel, plain
+        # in turns: plain, kernel, other splits, kernel, plain (eager, as the
+        # earlier times were taken); then the kernel's device time from a CUDA graph
         t_plain = [time_ms(plain, 1, 5)]
         t_kernel = [time_ms(run())]
         t_split = {ps: time_ms(run(ps)) for ps in ssd.P_BLOCKS
                    if P % ps == 0 and ps != ssd.choose_p_block(P)}
         t_kernel.append(time_ms(run()))
         t_plain.append(time_ms(plain, 1, 5))
+        t_device = graph_ms(run())
         rows[model] = {"shape": {"B": 1, "S": 512, "H": H, "P": P, "N": N},
                        "dtype": "bfloat16 x/B/C, float32 dt and y",
                        "p_block": ssd.choose_p_block(P),
                        "blocks": (P // ssd.choose_p_block(P)) * H,
                        "max_abs_err": max(err_y, err_h),
                        "kernel_ms": min(t_kernel), "kernel_ms_runs": t_kernel,
-                       "kernel_ms_other_p_blocks": t_split,
+                       "kernel_ms_other_p_blocks": t_split, "device_ms": t_device,
                        "plain_ms": min(t_plain), "library_ms": None,
                        **ssd_bound(*args, y, h)}
         rows[model]["roofline_share"] = rows[model]["bound_ms"] / rows[model]["kernel_ms"]
@@ -830,7 +1116,7 @@ def ssd_entry(ctx):
             "replaces": SSD_REPLACES, **path_launches(ctx, "mamba2_ssd"),
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": None,
+            "bound_by": top["bound_by"], "library_ms": None, "device_ms": top["device_ms"],
             "library_note": "no single PyTorch call computes the SSD scan",
             "top_level_shape": "mamba2_370m", "card": ctx.get("card"), "shapes": rows}
 
@@ -871,7 +1157,8 @@ def _device_profile(fn, repeats):
                   reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / repeats
     require(device_ms > 0, "the profiler saw no device time")
-    ours = {name: sum(us for us, k, _ in rows if name + "_kernel" in k) / 1e3 / repeats
+    # flash_attention_{,mma_,split_}kernel and mamba2_ssd_kernel
+    ours = {name: sum(us for us, k, _ in rows if name in k and "_kernel" in k) / 1e3 / repeats
             for name in WRAPPERS}
     return {"wall_ms": round(wall_ms, 3), "device_ms": round(device_ms, 3),
             "device_busy_share": round(device_ms / wall_ms, 4),
