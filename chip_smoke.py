@@ -16,9 +16,12 @@ points a user calls.  Each phase prints one JSON line:
                          oracle over shapes, dtypes, masks and ragged lengths
                          (tolerance 2e-5 in fp32, 2e-2 in bf16, absolute + relative)
 4. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
-                         oracle: the reference's shape sweep, ragged lengths, an initial
-                         state, strided views, p-splits, both full-width shapes, and the
-                         inputs it must refuse (tolerance 2e-4 in fp32, 5e-2 in bf16)
+                         oracle on both paths (fp32: fma, bf16: mma): the reference's shape
+                         sweep, ragged lengths, an initial state, strided views, p-splits,
+                         both full-width shapes, operands off 16-byte boundaries (bit for
+                         bit against 16-byte copies), every plan against the default
+                         (1e-5), and the inputs it must refuse (tolerance 2e-4 in fp32,
+                         5e-2 in bf16)
 5. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
                          weights from a seed): 16 requests through 8 slots; every attention
                          call must have gone through the kernel (launch count); logits are
@@ -106,6 +109,7 @@ def reset_counts() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
     fa.flash_attention.launches_by_path = {p: 0 for p in fa.PATHS}
+    ssd.mamba2_ssd.launches_by_path = {p: 0 for p in ssd.PATHS}
 
 
 def read_counts() -> dict:
@@ -230,11 +234,12 @@ _MANGLED = re.compile(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+
 _MANGLED_MMA = re.compile(r"flash_attention_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
 _MANGLED_SPLIT = re.compile(r"flash_attention_split_kernelILi(\d+)ELi(\d+)E")
 _MANGLED_SSD = re.compile(r"mamba2_ssd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+_MANGLED_SSD_MMA = re.compile(r"mamba2_ssd_mma_kernelILi(\d+)ELi(\d+)E")
 
 
 def readable(mangled: str) -> str:
     """The attention kernel's three paths as path, dtype, head-width class and
-    tile; ``mamba2_ssd_kernel<T, N, PS>`` as dtype, state width and p_block."""
+    tile; the SSD kernel's two paths as path, dtype, state width and p_block."""
     m = _MANGLED.search(mangled)
     if m:
         t, nj, rm, nkj = m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
@@ -251,7 +256,10 @@ def readable(mangled: str) -> str:
     m = _MANGLED_SSD.search(mangled)
     if m:
         t, n, ps = m.group(1), int(m.group(2)), int(m.group(3))
-        return f"mamba2_ssd<{'float' if t == 'f' else 'bf16'}, N={n}, p_block={ps}>"
+        return f"mamba2_ssd<fma, {'float' if t == 'f' else 'bf16'}, N={n}, p_block={ps}>"
+    m = _MANGLED_SSD_MMA.search(mangled)
+    if m:
+        return f"mamba2_ssd<mma, bf16, N={m.group(1)}, p_block={m.group(2)}>"
     return mangled
 
 
@@ -263,10 +271,17 @@ def phase_build(ctx):
         entry = {**r, "kernel": readable(r["kernel"])}
         # dynamic shared memory, by the formulas checked below (attention: at
         # Dh = the class, Skv = 1024, the chooser's stages)
-        ssd_kernel = _MANGLED_SSD.search(r["kernel"])
-        if ssd_kernel:
-            entry["dynamic_smem_bytes"] = ssd.smem_bytes(int(ssd_kernel.group(2)),
-                                                         int(ssd_kernel.group(3)))
+        ssd_fma, ssd_mma = _MANGLED_SSD.search(r["kernel"]), _MANGLED_SSD_MMA.search(r["kernel"])
+        if ssd_fma:
+            entry["ssd_path"], entry["state"] = "fma", int(ssd_fma.group(2))
+            entry["p_block"] = int(ssd_fma.group(3))
+            entry["dynamic_smem_bytes"] = ssd.smem_bytes(int(ssd_fma.group(2)),
+                                                         int(ssd_fma.group(3)), "fma")
+        if ssd_mma:
+            entry["ssd_path"], entry["state"] = "mma", int(ssd_mma.group(1))
+            entry["p_block"] = int(ssd_mma.group(2))
+            entry["dynamic_smem_bytes"] = ssd.smem_bytes(int(ssd_mma.group(1)),
+                                                         int(ssd_mma.group(2)), "mma")
         fma_k, mma_k = _MANGLED.search(r["kernel"]), _MANGLED_MMA.search(r["kernel"])
         split_k = _MANGLED_SPLIT.search(r["kernel"])
         if fma_k:
@@ -302,15 +317,31 @@ def phase_build(ctx):
             "registers": {r["kernel"]: r["registers"] for r in mine},
             "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
         }
+    ssd_by_path = {}
+    for path in ssd.PATHS:
+        mine = [r for r in res if r.get("ssd_path") == path]
+        ssd_by_path[path] = {
+            "instantiations": len(mine),
+            "registers": {r["kernel"]: r["registers"] for r in mine},
+            "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
+        }
     emit("build", seconds=round(info.seconds or time.perf_counter() - t0, 3), reused=info.reused,
          so=os.path.relpath(info.path), sources=[p.name for p in _build.sources()],
          kernels=len(res), max_registers=max(r["registers"] for r in res),
          spill_bytes=sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in res),
-         by_kernel=by_kernel, attention_by_path=by_path, resources=res)
+         by_kernel=by_kernel, attention_by_path=by_path, ssd_by_path=ssd_by_path, resources=res)
     # the new paths keep their state in registers at the main paths' head widths
     spilled = [r["kernel"] for r in res if r.get("dh_class") in (80, 128)
                and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
     require(not spilled, f"spills at Dh = 80 / 128: {spilled}")
+    # the SSD mma path keeps h in registers at the main paths' state widths
+    spilled = [r["kernel"] for r in res if r.get("ssd_path") == "mma" and r["state"] in (64, 128)
+               and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
+    require(not spilled, f"SSD mma spills at N = 64 / 128: {spilled}")
+    # the chooser's occupancy counts registers from its table: never fewer than ptxas's
+    over = [r["kernel"] for r in res if r.get("ssd_path")
+            and r["registers"] > ssd.REGISTERS[(r["ssd_path"], r["state"], r["p_block"])]]
+    require(not over, f"SSD kernels hold more registers than mamba2_ssd.REGISTERS: {over}")
     # fma: fp32 only, 4 head-width classes x 4 tiles; mma: 4 x 2 KV tiles;
     # split: 4 x 4 row classes
     require((by_path["fma"]["instantiations"], by_path["mma"]["instantiations"],
@@ -333,15 +364,18 @@ def phase_build(ctx):
             for rc in fa.SPLIT_ROWS:
                 require(smem_c(2, dh, rc, 32, skv) == fa.split_smem_bytes(dh, rc, skv),
                         f"split shared-memory formulas differ at Dh={dh}, rows={rc}")
-    lib.repro_mamba2_ssd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.repro_mamba2_ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.repro_mamba2_ssd_smem_bytes.restype = ctypes.c_longlong
-    for n in ssd.STATE_WIDTHS:
-        for ps in ssd.P_BLOCKS:
-            require(lib.repro_mamba2_ssd_smem_bytes(n, ps) == ssd.smem_bytes(n, ps),
-                    f"SSD shared-memory formulas differ at N={n}, p_block={ps}")
-    names = [r["kernel"] for r in res]
-    require(sum(n.startswith("mamba2_ssd<") for n in names) == 2 * len(ssd.STATE_WIDTHS)
-            * len(ssd.P_BLOCKS), "the build lacks SSD instantiations")
+    for code, path in enumerate(ssd.PATHS):
+        for n in ssd.STATE_WIDTHS:
+            for ps in ssd.P_BLOCKS:
+                require(lib.repro_mamba2_ssd_smem_bytes(code, n, ps) == ssd.smem_bytes(n, ps, path),
+                        f"SSD {path} shared-memory formulas differ at N={n}, p_block={ps}")
+    # fma: fp32 only; each path 4 state widths x 3 p_blocks
+    per_path = len(ssd.STATE_WIDTHS) * len(ssd.P_BLOCKS)
+    require(all(ssd_by_path[p]["instantiations"] == per_path for p in ssd.PATHS),
+            f"the build's SSD instantiations by path: "
+            f"{ {p: v['instantiations'] for p, v in ssd_by_path.items()} }")
 
 
 ATTN_SHAPES = [
@@ -547,26 +581,49 @@ def make_ssd(B, S, H, P, N, dtype, seed=0, model_layout=False, decays="reference
     return x, dt, a, bm, cm
 
 
+def ssd_path_launched(before):
+    """The one SSD path whose count rose since ``before``."""
+    grew = [p for p, n in ssd.mamba2_ssd.launches_by_path.items() if n != before[p]]
+    require(len(grew) == 1, f"expected one SSD path to launch, got {grew}")
+    return grew[0]
+
+
 def check_ssd(name, args, failures, results, h0=None, p_block=None, out_dtype=None):
-    """One kernel launch against ``ssd_plain`` and the sequential oracle."""
+    """One kernel launch against ``ssd_plain`` and the sequential oracle;
+    returns the kernel's ``(y, h)``."""
     x = args[0]
-    before = ssd.mamba2_ssd.launches
+    before, by_path = ssd.mamba2_ssd.launches, dict(ssd.mamba2_ssd.launches_by_path)
     y, h = ops.mamba2_ssd(*args, h0=h0, p_block=p_block, out_dtype=out_dtype)
     torch.cuda.synchronize()
     require(ssd.mamba2_ssd.launches == before + 1, "the SSD wrapper did not launch the kernel")
+    path = ssd_path_launched(by_path)
     y_plain, h_plain = ssd.ssd_plain(*args, h0=h0, out_dtype=out_dtype)
     y_ref, h_ref = ref.ssd_reference(*args, h0=h0)
     torch.cuda.synchronize()
     tol = SSD_TOL[x.dtype]
     errs = {}
-    ok = y.dtype == (out_dtype or x.dtype) and h.dtype == torch.float32
+    ok = (y.dtype == (out_dtype or x.dtype) and h.dtype == torch.float32
+          and path == ssd.choose_path(x.dtype))
     for key, got, want in (("y_vs_plain", y, y_plain), ("h_vs_plain", h, h_plain),
                            ("y_vs_oracle", y, y_ref), ("h_vs_oracle", h, h_ref)):
         errs[key], good = compare(got, want, tol)
         ok = ok and good
-    results.append({"case": name, "dtype": str(x.dtype).replace("torch.", ""),
+    results.append({"case": name, "dtype": str(x.dtype).replace("torch.", ""), "path": path,
                     "shape": list(x.shape) + [args[3].shape[-1]], "p_block": p_block,
                     **errs, "ok": ok})
+    if not ok:
+        failures.append(f"{name} ({results[-1]['dtype']}, {path})")
+    return y, h
+
+
+def check_same(name, dtype, path, got, want, tol, failures, results):
+    """Two kernel results held against each other (``tol`` 0: bit for bit)."""
+    errs, ok = {}, True
+    for key, g, w in (("y_vs_plain", got[0], want[0]), ("h_vs_plain", got[1], want[1])):
+        errs[key], good = compare(g, w, tol)
+        ok = ok and good and (tol > 0 or torch.equal(g, w))
+    results.append({"case": name, "dtype": str(dtype).replace("torch.", ""), "path": path,
+                    "tolerance": tol, **errs, "ok": ok})
     if not ok:
         failures.append(name)
 
@@ -574,32 +631,51 @@ def check_ssd(name, args, failures, results, h0=None, p_block=None, out_dtype=No
 def phase_ssd_vs_plain(ctx):
     failures, results = [], []
     f32, bf16 = torch.float32, torch.bfloat16
+    both = (f32, bf16)
     for shape in SSD_SHAPES:
-        for dtype in (f32, bf16):
+        for dtype in both:
             check_ssd(f"shape{shape}", make_ssd(*shape, dtype), failures, results)
     # a bf16 dt, as tests/test_kernels.py::test_ssd_kernel_bf16 feeds it
     x, dt, a, bm, cm = make_ssd(1, 64, 4, 16, 32, bf16)
     check_ssd("bf16 dt", (x, dt.bfloat16(), a, bm, cm), failures, results)
     # ragged lengths: not a multiple of the kernel's 64-row chunk
     for S in (1, 3, 63, 65, 100, 200):
-        check_ssd(f"ragged S={S}", make_ssd(2, S, 4, 32, 64, f32, seed=S), failures, results)
+        for dtype in both:
+            check_ssd(f"ragged S={S}", make_ssd(2, S, 4, 32, 64, dtype, seed=S), failures, results)
     # an initial state, and an initial state with a ragged length
     for S in (64, 77):
-        x, dt, a, bm, cm = make_ssd(2, S, 4, 32, 32, f32, seed=3)
-        h0 = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 4, 32, 32),
-                              dtype=np.float32) * 0.3).to(DEVICE)
-        check_ssd(f"h0, S={S}", (x, dt, a, bm, cm), failures, results, h0=h0)
+        for dtype in both:
+            x, dt, a, bm, cm = make_ssd(2, S, 4, 32, 32, dtype, seed=3)
+            h0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+                (2, 4, 32, 32), dtype=np.float32) * 0.3).to(DEVICE)
+            check_ssd(f"h0, S={S}", (x, dt, a, bm, cm), failures, results, h0=h0)
     # strided views, the model's layout: x, B and C columns of one tensor
-    for dtype in (f32, bf16):
+    for dtype in both:
         check_ssd("strided views", make_ssd(2, 100, 4, 32, 64, dtype, model_layout=True),
                   failures, results)
-    # p-splits: each block owns 16, 32 or 64 rows of a head's state
-    args = make_ssd(1, 130, 4, 64, 64, f32, model_layout=True)
-    for ps in ssd.P_BLOCKS:
-        check_ssd(f"p_block={ps}", args, failures, results, p_block=ps)
+    # p-splits: each block owns 16, 32 or 64 rows of a head's state; every plan
+    # against the default plan at 1e-5 (the split does not change the result)
+    for dtype in both:
+        args = make_ssd(1, 130, 4, 64, 64, dtype, model_layout=True)
+        path = ssd.choose_path(dtype)
+        default = check_ssd("default plan", args, failures, results, out_dtype=f32)
+        for ps in ssd.P_BLOCKS:
+            got = check_ssd(f"p_block={ps}", args, failures, results, p_block=ps, out_dtype=f32)
+            check_same(f"p_block={ps} vs default ({path})", dtype, path, got, default, 1e-5,
+                       failures, results)
     # float32 y from bf16 inputs: what the model asks for
     check_ssd("bf16 in, fp32 out", make_ssd(1, 100, 4, 32, 64, bf16, model_layout=True),
               failures, results, out_dtype=f32)
+    # operands that do not start on a 16-byte boundary: the mma path's
+    # element-wise fill must give what its 16-byte copies give, bit for bit
+    for model, (H, P, N) in SSD_MODELS.items():
+        x, dt, a, bm, cm = make_ssd(1, 300, H, P, N, bf16, model_layout=True, decays="model")
+        got = check_ssd(f"{model} misaligned operands",
+                        (misaligned(x), dt, a, misaligned(bm), misaligned(cm)), failures,
+                        results, out_dtype=f32)
+        want = ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=f32)
+        check_same(f"{model} element-wise vs 16-byte loads", bf16, "mma", got, want, 0.0,
+                   failures, results)
     # both models' heads at full width, in the model's layout and with its decays
     for model, (H, P, N) in SSD_MODELS.items():
         for S in (64, 300, 512):
@@ -608,22 +684,15 @@ def phase_ssd_vs_plain(ctx):
                       failures, results, out_dtype=f32)
         check_ssd(f"{model} fp32 S=300", make_ssd(1, 300, H, P, N, f32, model_layout=True,
                                                   decays="model"), failures, results)
-    # the split does not change the result: kernel against kernel at 1e-5
-    y16, h16 = ops.mamba2_ssd(*args, p_block=16)
-    for ps in (32, 64):
-        y, h = ops.mamba2_ssd(*args, p_block=ps)
-        err_y, ok_y = compare(y, y16, 1e-5)
-        err_h, ok_h = compare(h, h16, 1e-5)
-        results.append({"case": f"p_block {ps} vs 16", "dtype": "float32",
-                        "y_vs_plain": err_y, "h_vs_plain": err_h, "ok": ok_y and ok_h})
-        if not (ok_y and ok_h):
-            failures.append(f"p_block {ps} vs 16")
-    emit("ssd_vs_plain", cases=len(results), failed=failures,
+    paths = {p: sum(r.get("path") == p for r in results) for p in ssd.PATHS}
+    require(all(paths.values()), f"an SSD path was never checked: {paths}")
+    emit("ssd_vs_plain", cases=len(results), failed=failures, cases_by_path=paths,
          max_err_fp32=max(max(r.get("y_vs_oracle", 0), r["y_vs_plain"]) for r in results
                           if r["dtype"] == "float32"),
          max_err_bf16=max(max(r.get("y_vs_oracle", 0), r["y_vs_plain"]) for r in results
                           if r["dtype"] == "bfloat16"),
-         tolerance={"float32": 2e-4, "bfloat16": 5e-2}, results=results)
+         tolerance={"float32": 2e-4, "bfloat16": 5e-2, "plans": 1e-5, "misaligned": 0.0},
+         results=results)
     require(not failures, f"SSD kernel disagrees on: {failures}")
 
     # what the wrapper must refuse rather than hand to the plain version
@@ -635,15 +704,18 @@ def phase_ssd_vs_plain(ctx):
         (lambda: ops.mamba2_ssd(x, dt, a, bm[..., :24], cm[..., :24]), ValueError),
         (lambda: ops.mamba2_ssd(x[..., :24], dt, a, bm, cm), ValueError),
         (lambda: ops.mamba2_ssd(x, dt, a, bm, cm, p_block=128), ValueError),
+        (lambda: ops.mamba2_ssd(x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16(), p_block=64),
+         ValueError),
         (lambda: ops.mamba2_ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm),
          ValueError),
         (lambda: ops.mamba2_ssd(x.requires_grad_(), dt, a, bm, cm), RuntimeError),
     ):
-        before = ssd.mamba2_ssd.launches
+        before = (ssd.mamba2_ssd.launches, dict(ssd.mamba2_ssd.launches_by_path))
         try:
             bad()
         except exc:
-            require(ssd.mamba2_ssd.launches == before, "a refused input counted as a launch")
+            require((ssd.mamba2_ssd.launches, ssd.mamba2_ssd.launches_by_path) == before,
+                    "a refused input counted as a launch")
         else:
             raise SmokeFailure("the SSD wrapper took an input the kernel does not take")
 
@@ -719,10 +791,12 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     serve_s = time.perf_counter() - t0
     launches = read_counts()        # ... and ends here
     attn_paths = dict(fa.flash_attention.launches_by_path)
+    ssd_paths = dict(ssd.mamba2_ssd.launches_by_path)
     # this path's own: the memory held before its model was made is not counted
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
     ctx.setdefault("launches", {})[phase] = launches
     ctx.setdefault("attention_paths", {})[phase] = attn_paths
+    ctx.setdefault("ssd_paths", {})[phase] = ssd_paths
     ctx.setdefault("servers", {})[cfg.name] = server
 
     require([c.uid for c in done] == list(range(SERVE["n_requests"])), "completions out of order")
@@ -738,6 +812,9 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     if launches["flash_attention"]:  # bf16 serving: prompts on mma, decode steps on split
         require(attn_paths["fma"] == 0 and attn_paths["mma"] > 0 and attn_paths["split"] > 0,
                 f"{cfg.name}: attention paths {attn_paths}, expected mma and split only")
+    if launches["mamba2_ssd"]:  # bf16 serving: every prefill layer on the tensor cores
+        require(ssd_paths == {"fma": 0, "mma": launches["mamba2_ssd"]},
+                f"{cfg.name}: SSD paths {ssd_paths}, expected mma only")
 
     # the same logits through the plain PyTorch paths, on the card
     tokens = torch.from_numpy(requests[0].prompt[None]).to(dev)
@@ -792,7 +869,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
          requests=len(done), prompt_lengths=[int(n) for n in lengths],
          tokens=sum(len(c.tokens) for c in done), prefills=steps["prefill"],
          decode_steps=steps["decode"], kernel_launches=launches, expected_launches=want,
-         attention_launches_by_path=attn_paths,
+         attention_launches_by_path=attn_paths, ssd_launches_by_path=ssd_paths,
          prefill_ms_mean=round(float(np.mean(step_ms["prefill"])), 3),
          decode_step_ms_mean=round(float(np.mean(step_ms["decode"])), 3),
          decode_step_ms_p50=round(float(np.median(step_ms["decode"])), 3),
@@ -1054,6 +1131,8 @@ def path_launches(ctx, name):
     out = {"launches": sum(by_path.values()), "launches_by_path": by_path}
     if name == "flash_attention":
         out["launches_by_kernel_path"] = ctx.get("attention_paths", {})
+    if name == "mamba2_ssd":
+        out["launches_by_kernel_path"] = ctx.get("ssd_paths", {})
     return out
 
 
@@ -1077,11 +1156,13 @@ def ssd_bound(x, dt, a, bm, cm, y, h_last):
 
 def ssd_entry(ctx):
     """The SSD kernel at the prefill of a 512-token prompt of each model, in the
-    model's layout (bf16 x, B, C cut from one tensor; fp32 dt; fp32 y), timed
-    in turns with its plain version and with the other p-splits."""
+    model's layout (bf16 x, B, C cut from one tensor; fp32 dt; fp32 y): the
+    mma path, timed in turns with its plain version and with every other plan
+    (p_block), eager and from CUDA graphs."""
     rows = {}
     for model, (H, P, N) in SSD_MODELS.items():
         args = make_ssd(1, 512, H, P, N, torch.bfloat16, model_layout=True, decays="model")
+        plan = ssd.choose_plan(1, H, P, N, torch.bfloat16)
         y, h = ops.mamba2_ssd(*args, out_dtype=torch.float32)
         y_plain, h_plain = ssd.ssd_plain(*args, out_dtype=torch.float32)
         err_y, ok_y = compare(y, y_plain, SSD_TOL[torch.float32])
@@ -1092,32 +1173,39 @@ def ssd_entry(ctx):
             return lambda: ops.mamba2_ssd(*args, p_block=ps, out_dtype=torch.float32)
 
         plain = lambda: ssd.ssd_plain(*args, out_dtype=torch.float32)   # noqa: E731
-        # in turns: plain, kernel, other splits, kernel, plain (eager, as the
-        # earlier times were taken); then the kernel's device time from a CUDA graph
+        # in turns: plain, kernel, other plans, kernel, plain (eager, as the
+        # earlier times were taken); then device times from CUDA graphs
+        others = [ps for ps in ssd.P_BLOCKS if P % ps == 0 and ps != plan.p_block]
         t_plain = [time_ms(plain, 1, 5)]
         t_kernel = [time_ms(run())]
-        t_split = {ps: time_ms(run(ps)) for ps in ssd.P_BLOCKS
-                   if P % ps == 0 and ps != ssd.choose_p_block(P)}
+        t_other = {ps: time_ms(run(ps)) for ps in others}
         t_kernel.append(time_ms(run()))
         t_plain.append(time_ms(plain, 1, 5))
-        t_device = graph_ms(run())
+        d_kernel = [graph_ms(run()) for _ in range(2)]
+        d_other = {ps: graph_ms(run(ps)) for ps in others}
         rows[model] = {"shape": {"B": 1, "S": 512, "H": H, "P": P, "N": N},
-                       "dtype": "bfloat16 x/B/C, float32 dt and y",
-                       "p_block": ssd.choose_p_block(P),
-                       "blocks": (P // ssd.choose_p_block(P)) * H,
-                       "max_abs_err": max(err_y, err_h),
+                       "dtype": "bfloat16 x/B/C, float32 dt and y", "path": plan.path,
+                       "plan": dataclasses.asdict(plan), "p_block": plan.p_block,
+                       "blocks": plan.blocks, "max_abs_err": max(err_y, err_h),
                        "kernel_ms": min(t_kernel), "kernel_ms_runs": t_kernel,
-                       "kernel_ms_other_p_blocks": t_split, "device_ms": t_device,
+                       "device_ms": min(d_kernel), "device_ms_runs": d_kernel,
+                       "kernel_ms_other_p_blocks": t_other,
+                       "device_ms_other_p_blocks": d_other,
+                       "timing": "*_ms: CUDA events around 20 eager calls, the host's issue "
+                                 "time included; device_ms*: device time of one call, from "
+                                 "CUDA graphs of 20 calls",
                        "plain_ms": min(t_plain), "library_ms": None,
                        **ssd_bound(*args, y, h)}
-        rows[model]["roofline_share"] = rows[model]["bound_ms"] / rows[model]["kernel_ms"]
+        r = rows[model]
+        r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+        r["device_roofline_share"] = r["bound_ms"] / r["device_ms"]
     top = rows["mamba2_370m"]
     return {"name": "mamba2_ssd", "route": "cuda", "source": SSD_SOURCE,
             "replaces": SSD_REPLACES, **path_launches(ctx, "mamba2_ssd"),
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": top["kernel_ms"], "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None, "device_ms": top["device_ms"],
-            "library_note": "no single PyTorch call computes the SSD scan",
+            "path": top["path"], "library_note": "no single PyTorch call computes the SSD scan",
             "top_level_shape": "mamba2_370m", "card": ctx.get("card"), "shapes": rows}
 
 

@@ -63,7 +63,7 @@ def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
-    + ["chip_smoke.py"],
+    + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py"],
 )
 def test_source_names_neither_jax_nor_the_reference_package(path):
     text = (ROOT / path).read_text()

@@ -195,14 +195,103 @@ def test_plain_version_walks_64_row_chunks():
 # ---------------------------------------------------------------------------
 
 
-def test_every_instantiation_fits_a_block():
+@pytest.mark.parametrize("path", ssd.PATHS)
+@pytest.mark.parametrize("n", ssd.STATE_WIDTHS)
+@pytest.mark.parametrize("ps", ssd.P_BLOCKS)
+def test_every_instantiation_fits_a_block(path, n, ps):
+    """Every (path, N, p_block) the kernel is built for fits a block's shared
+    memory and a thread's 255 registers, and an SM holds at least one block."""
+    assert ssd.smem_bytes(n, ps, path) <= 227 * 1024
+    assert 0 < ssd.REGISTERS[(path, n, ps)] <= 255
+    assert ssd.resident_blocks(n, ps, path) >= 1
+    if path == "fma":
+        assert ps * n % ssd.THREADS == 0    # the state splits evenly over the threads
+    else:
+        assert ps % 16 == 0 and n % 16 == 0  # h is cut into 16 x 16 mma tiles
+
+
+#: the main path's calls: one prompt through each model's mamba layers
+MAIN_SHAPES = {"mamba2_370m": (1, 32, 64, 128), "zamba2_2_7b": (1, 80, 64, 64)}
+
+
+@pytest.mark.parametrize("model", sorted(MAIN_SHAPES))
+def test_main_path_shapes_pick_mma_and_one_wave(model):
+    """The grid runs in one wave of resident blocks: no SM runs two blocks of
+    the call one after the other."""
+    B, H, P, N = MAIN_SHAPES[model]
+    plan = ssd.choose_plan(B, H, P, N, torch.bfloat16)
+    assert plan.path == "mma" and plan.threads == ssd.THREADS
+    assert plan.blocks == B * H * (P // plan.p_block)
+    assert plan.smem_bytes == ssd.smem_bytes(N, plan.p_block, "mma") <= ssd.SMEM_PER_BLOCK
+    assert plan.resident >= 1 and plan.waves == 1
+    assert plan.blocks <= ssd.SMS * plan.resident
+
+
+def test_main_path_plans():
+    """The chooser's picks at the main path's shapes: every split of
+    mamba2_370m's heads runs in one wave, so the fewest state rows a block
+    (128 blocks, one an SM); zamba2_2_7b's narrow state lets an SM hold two
+    blocks, so 32 rows (160 blocks) run in one wave and 16 rows (320) in two."""
+    assert ssd.choose_plan(1, 32, 64, 128, torch.bfloat16).p_block == 16
+    plan = ssd.choose_plan(1, 80, 64, 64, torch.bfloat16)
+    assert (plan.p_block, plan.resident, plan.waves) == (32, 2, 1)
+    assert ssd.choose_plan(1, 80, 64, 64, torch.bfloat16, p_block=16).waves == 2
+    # more prompts than one wave holds: the fewest waves
+    plan = ssd.choose_plan(8, 32, 64, 128, torch.bfloat16)
+    assert (plan.p_block, plan.waves) == (64, 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 64, 128), (1, 80, 64, 64), (2, 4, 32, 16)])
+def test_fp32_picks_fma(shape):
+    plan = ssd.choose_plan(*shape, torch.float32)
+    assert plan.path == "fma" and plan.threads == ssd.THREADS
+    assert plan.smem_bytes == ssd.smem_bytes(shape[3], plan.p_block, "fma")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", ssd.P_BLOCKS)
+def test_explicit_p_block_overrides(dtype, ps):
+    plan = ssd.choose_plan(1, 32, 64, 128, getattr(torch, dtype), p_block=ps)
+    assert plan.p_block == ps and plan.blocks == 32 * 64 // ps
+    assert plan.path == ("mma" if dtype == "bfloat16" else "fma")
+    # the chooser is deterministic
+    assert plan == ssd.choose_plan(1, 32, 64, 128, getattr(torch, dtype), p_block=ps)
+
+
+@pytest.mark.parametrize("path", ssd.PATHS)
+def test_smem_bytes_is_the_kernels_formula(path):
+    """The kernel's own formulas (csrc/mamba2_ssd.cu: smem_floats,
+    mma_smem_bytes), written out; chip_smoke.py's build phase checks the
+    compiled ones through repro_mamba2_ssd_smem_bytes."""
     for n in ssd.STATE_WIDTHS:
         for ps in ssd.P_BLOCKS:
-            assert ssd.smem_bytes(n, ps) <= 227 * 1024
-            assert ps * n % ssd.THREADS == 0    # the state splits evenly over the threads
-    # the main path's: mamba2_370m and zamba2_2_7b at the default p_block
-    assert ssd.choose_p_block(64) == 16
-    assert ssd.smem_bytes(128, 16) == 4 * (2 * 64 * 129 + 64 * 65 + 2 * 64 * 16 + 16 * 129 + 256)
+            if path == "fma":
+                want = 4 * (2 * 64 * (n + 1) + 64 * 65 + 2 * 64 * ps + ps * (n + 1) + 256)
+            else:
+                stage = 2 * 64 * (n + 8) * 2 + 64 * (ps + 8) * 2 + 64 * 4
+                want = 2 * stage + 4 * ps * (n + 8) * 2 + 64 * ps * 4 + 8 * 3 * 64 * 4
+            assert ssd.smem_bytes(n, ps, path) == want
+    assert ssd.smem_bytes(128, 16, "fma") == 4 * (2 * 64 * 129 + 64 * 65 + 2 * 64 * 16 + 16 * 129 + 256)
+    assert ssd.smem_bytes(128, 16, "mma") == 95744 + 64 * 16 * 4 + 4096
+
+
+def test_plan_refuses_what_the_kernel_is_not_built_for():
+    with pytest.raises(ValueError):
+        ssd.choose_plan(1, 2, 24, 32, torch.float32)
+    with pytest.raises(ValueError):
+        ssd.choose_plan(1, 2, 32, 24, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ssd.choose_plan(1, 2, 32, 32, torch.bfloat16, p_block=64)
+    with pytest.raises(ValueError):
+        ssd.smem_bytes(32, 16, "wgmma")
+
+
+def test_a_cpu_call_counts_no_launch_on_any_path():
+    x, dt, a, bm, cm = _torch(_inputs(1, 70, 2, 32, 32), torch.bfloat16)
+    before = (ssd.mamba2_ssd.launches, dict(ssd.mamba2_ssd.launches_by_path))
+    ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=torch.float32)
+    assert (ssd.mamba2_ssd.launches, ssd.mamba2_ssd.launches_by_path) == before
+    assert set(ssd.mamba2_ssd.launches_by_path) == set(ssd.PATHS)
 
 
 def _refusals():
@@ -265,15 +354,19 @@ def test_a_cuda_tensor_never_reaches_the_plain_version():
 
 
 @pytest.mark.gpu
-def test_cuda_ssd_kernel_matches_plain_on_the_card():
-    """Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the full sweep."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_matches_plain_on_the_card(dtype):
+    """Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the full
+    sweep.  float32 takes the fma path, bfloat16 the mma path (y in float32,
+    as the model asks: both paths keep near-fp32 products)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernel has no interpret mode")
-    args = tuple(t.cuda() for t in _torch(_inputs(2, 100, 4, 32, 64)))
-    before = ssd.mamba2_ssd.launches
-    y, h = ops.mamba2_ssd(*args)
+    args = tuple(t.cuda() for t in _torch(_inputs(2, 100, 4, 32, 64), getattr(torch, dtype)))
+    path = "mma" if dtype == "bfloat16" else "fma"
+    before = ssd.mamba2_ssd.launches_by_path[path]
+    y, h = ops.mamba2_ssd(*args, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert ssd.mamba2_ssd.launches == before + 1
-    want_y, want_h = ssd.ssd_plain(*args)
+    assert ssd.mamba2_ssd.launches_by_path[path] == before + 1
+    want_y, want_h = ssd.ssd_plain(*args, out_dtype=torch.float32)
     _close(y.cpu(), want_y.cpu(), 2e-4)
     _close(h.cpu(), want_h.cpu(), 2e-4)
