@@ -6,15 +6,16 @@
 
 It imports ``repro_torch`` only, builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (one process a source, all
-started together), and drives the port's three serving paths through the entry
+started together), and drives the port's six serving paths through the entry
 points a user calls.  Each phase prints one JSON line:
 
 1. ``device``            card name and power limit (``nvidia-smi``), torch / CUDA / nvcc versions
 2. ``build``             build seconds, the ``.so``, per-kernel registers / spills / shared
                          memory from ptxas, instantiations named readably
 3. ``kernel_vs_plain``   the attention kernel against its plain PyTorch version and the
-                         oracle over shapes, dtypes, masks and ragged lengths
-                         (tolerance 2e-5 in fp32, 2e-2 in bf16, absolute + relative)
+                         oracle over shapes, dtypes, masks and ragged lengths, and at the
+                         heads of every served model (tolerance 2e-5 in fp32, 2e-2 in bf16,
+                         absolute + relative)
 4. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
                          oracle on both paths (fp32: fma, bf16: mma): the reference's shape
                          sweep, ragged lengths, an initial state, strided views, p-splits,
@@ -31,8 +32,17 @@ points a user calls.  Each phase prints one JSON line:
                          against ``ssd_impl="chunked"``
 7. ``serve_zamba2``      the same on full-width zamba2_2_7b (54 mamba layers, a shared
                          attention block applied 9 times): both kernels on one path
-8. ``kernels``           one line ``{"kernels": [...]}``: for each kernel its launches on
-                         the three paths, error against the plain version, time (``ms``:
+8. ``serve_qwen2_moe``   the same on full-width qwen2_moe_a2_7b (24 layers, 60 experts top-4
+                         and a gated shared expert; 26.7 GiB): prompts over 256 tokens on the
+                         capacity path, the rest and every decode step on the exact one
+9. ``serve_qwen2_vl``    the same on full-width qwen2_vl_2b (28 layers, GQA 6, tied head),
+                         then a vision-prefix prefill (256 patch embeddings, M-RoPE) through
+                         ``Model.prefill`` and 8 decode steps
+10. ``serve_llama4``     the same on llama4_scout_17b_a16e at full width and 4 of its 48
+                         layers (one global period; 48 are 200.7 GiB), then one 8,448-token
+                         prompt across the 8,192-token attention chunk and 4 decode steps
+11. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
+                         the serving paths, error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
                          (``scaled_dot_product_attention`` under each backend that takes
@@ -40,12 +50,20 @@ points a user calls.  Each phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-9. ``serve_throughput``  per model: tokens/s and completion latencies, with the card
+12. ``serve_throughput`` per model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
-read just after.  ``--phases serve,serve_mamba2,serve_zamba2,profile`` adds a ``torch.profiler``
-pass over a few decode steps and a 512-token prefill of each served model
-(device time by kernel, device busy share); it is not part of the default run.
+read just after, prints its initialisation and serving peaks of device memory
+(``init_peak_gb``, ``peak_memory_gb``), and drops its model before the next
+one is made: one full-width model on the card at a time.  The MoE and VLM
+paths hold the kernel path's logits against ``attn_impl="chunked"`` within
+the larger of 1e-1 and twice the spread of ``"xla"`` against ``"chunked"``,
+report the share of tokens routed to other experts, and hold the same weights
+in float32 within 1e-3 (qwen2_moe at 2 of its layers).  ``--phases
+serve,...,serve_llama4,profile`` adds a ``torch.profiler`` pass over a few
+decode steps and a 512-token prefill of each served model, taken while it is
+on the card (device time by kernel, device busy share); it is not part of the
+default run.  The ``run`` line gives the wall time of the whole run.
 
 Any failed phase ends the run with a non-zero exit code; there is no CPU
 fallback.  The last line is ``{"ok": true, "device": {...}}``.
@@ -56,6 +74,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -72,12 +91,14 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, transformer  # noqa: E402
 from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 
-PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", "serve", "serve_mamba2",
-          "serve_zamba2", "kernels", "serve_throughput"]
-EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,serve_mamba2,serve_zamba2,profile
+SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
+           "serve_llama4"]
+PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "kernels",
+          "serve_throughput"]
+EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,...,serve_llama4,profile
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
@@ -185,10 +206,14 @@ def launched_path(before):
     return grew[0]
 
 
-def check_case(name, args, dtype, failures, results, want_path=None, splits=None, **kw):
+def check_case(name, args, dtype, failures, results, want_path=None, splits=None,
+               oracle_kv_heads=None, **kw):
     """One launch against the plain version of the same path and the oracle;
     returns the kernel's output.  ``splits`` goes to the wrapper, which alone
-    takes the split path's count."""
+    takes the split path's count.  ``oracle_kv_heads`` holds only the first
+    kv heads (and their query heads) against the oracle, whose score matrix
+    of a long prompt would not fit for all of them; the plain version sees
+    every head."""
     q, k, v, qpos, kpos = args
     before, by_path = fa.flash_attention.launches, dict(fa.flash_attention.launches_by_path)
     if splits is None:
@@ -202,10 +227,14 @@ def check_case(name, args, dtype, failures, results, want_path=None, splits=None
     plain_kw = dict(window=kw.get("window"), chunk=kw.get("chunk_attn"),
                     block_q=kw.get("block_q"), block_kv=kw.get("block_kv"), splits=splits)
     plain = fa.flash_attention_plain(q, k, v, qpos, kpos, **plain_kw)
-    want = oracle(q, k, v, qpos, kpos, kw.get("window"), kw.get("chunk_attn"))
+    n = oracle_kv_heads or k.shape[2]
+    rows = n * (q.shape[2] // k.shape[2])
+    want = oracle(q[:, :, :rows], k[:, :, :n], v[:, :, :n], qpos, kpos, kw.get("window"),
+                  kw.get("chunk_attn"))
     torch.cuda.synchronize()
     err_plain, ok_plain = compare(got, plain, TOL[dtype])
-    err_oracle, ok_oracle = compare(got, want, TOL[dtype])
+    err_oracle, ok_oracle = compare(got[:, :, :rows], want, TOL[dtype])
+    del plain, want
     ok = ok_plain and ok_oracle and (want_path is None or path == want_path)
     results.append({"case": name, "dtype": str(dtype).replace("torch.", ""), "path": path,
                     "err_vs_plain": err_plain, "err_vs_oracle": err_oracle, "ok": ok})
@@ -447,6 +476,27 @@ def phase_kernel_vs_plain(ctx):
                    make_case(8, 1, 1024, hq, hkv, 128, bf16,
                              q_positions=serve_lengths()[:, None] - 1),
                    bf16, failures, results, want_path="split")
+    # the heads of the MoE and VLM models, all 128 wide: decode of qwen2_vl_2b
+    # (12/2, GQA 6) and llama4_scout (40/8, GQA 5) in the split path's 8-row
+    # class; prefill of qwen2_moe (16/16) and qwen2_vl on mma; llama4's chunked
+    # layers on one prompt of 8,448 tokens, across the 8,192-token chunk boundary
+    for hq, hkv in ((12, 2), (40, 8)):
+        plan = fa.choose_tile(1, 1024, 128, dtype=bf16, groups=hq // hkv, batch_kv_heads=8 * hkv)
+        require((plan.path, plan.bq) == ("split", 8), f"GQA {hq}/{hkv} decode: plan {plan}")
+        for dtype in both:
+            check_case(f"GQA {hq}/{hkv} decode unequal",
+                       make_case(8, 1, 1024, hq, hkv, 128, dtype,
+                                 q_positions=serve_lengths()[:, None] - 1),
+                       dtype, failures, results, want_path="split" if dtype == bf16 else "fma")
+    for hq, hkv in ((16, 16), (12, 2)):
+        for dtype in both:
+            check_case(f"prefill {hq}/{hkv}, Dh 128",
+                       make_case(1, 512, 1024, hq, hkv, 128, dtype,
+                                 q_positions=np.arange(512)[None]),
+                       dtype, failures, results, want_path="mma" if dtype == bf16 else "fma")
+    check_case("chunk 8192, an 8,448-token prompt, 40/8",
+               make_case(1, 8448, 8448, 40, 8, 128, bf16, q_positions=np.arange(8448)[None]),
+               bf16, failures, results, want_path="mma", chunk_attn=8192, oracle_kv_heads=1)
     # every key masked (query positions before the first key): the mean of the v rows
     for dtype in both:
         check_case("all keys masked", make_case(1, 5, 70, 2, 2, 64, dtype,
@@ -723,26 +773,135 @@ def phase_ssd_vs_plain(ctx):
 SERVE = dict(batch_slots=8, max_len=1024, max_new_tokens=32, n_requests=16, seed=0)
 
 
-def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=None):
+def weights_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+
+
+def with_routes(fn):
+    """``fn()`` with the experts of every router call recorded, each row
+    sorted: ``(result, [(T, top_k) tensors])``."""
+    seen, route = [], transformer.route
+
+    def recording(x, lp, m):
+        gate, expert = route(x, lp, m)
+        seen.append(expert.sort(dim=-1).values)
+        return gate, expert
+
+    transformer.route = recording
+    try:
+        return fn(), seen
+    finally:
+        transformer.route = route
+
+
+def route_agreement(got, want):
+    """The share of (layer, token) rows whose routed expert set differs."""
+    rows = sum(g.shape[0] for g in got)
+    differ = sum(int((g != w).any(-1).sum()) for g, w in zip(got, want))
+    return {"rows": rows, "differing": differ, "share": differ / rows if rows else 0.0}
+
+
+def logits_of(model, batch, max_len, token=None, **attrs):
+    """Logits of the prefill of ``batch`` and of the first decode step after
+    it, fed ``token`` (by default the prefill's own greedy choice), with the
+    model's attributes set to ``attrs`` for the call (another path:
+    ``attn_impl`` / ``ssd_impl``, or another ``cfg``), and the router's
+    choices on the way."""
+    kept = {k: getattr(model, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(model, k, v)
+
+    def run():
+        h, state = model.prefill(batch, max_len)
+        pre = model.logits(h[:, -1:])[:, 0].float()
+        h, state = model.decode_step(pre.argmax(-1, keepdim=True) if token is None else token,
+                                     state)
+        return pre, model.logits(h[:, -1:])[:, 0].float()
+
+    try:
+        return with_routes(run)
+    finally:
+        for k, v in kept.items():
+            setattr(model, k, v)
+
+
+def agreement(got, want, tol):
+    (pre_k, dec_k), routes_k = got
+    (pre_c, dec_c), routes_c = want
+    err_pre, ok_pre = compare(pre_k, pre_c, tol)
+    err_dec, ok_dec = compare(dec_k, dec_c, tol)
+    argmax = [bool((pre_k.argmax(-1) == pre_c.argmax(-1)).all()),
+              bool((dec_k.argmax(-1) == dec_c.argmax(-1)).all())]
+    out = {"prefill_err": err_pre, "decode_err": err_dec, "argmax_agrees": argmax,
+           "within": ok_pre and ok_dec}
+    if routes_k:
+        out["routes"] = route_agreement(routes_k, routes_c)
+    return out
+
+
+def logit_checks(model, batch, max_len, compare_impl, tol, spread, model32):
+    """The kernel path's logits against the plain path's (``compare_impl``)
+    on one prompt: the prefill, and the first decode step fed the plain
+    path's greedy token on both paths (at a near tie the two prefills may
+    choose apart, and the step must compare one function on one input).
+    With ``spread`` (attributes that leave the function as it is and move
+    only roundings of the plain path) the bf16 tolerance is the larger of
+    ``tol`` and twice the plain path's spread against itself; with
+    ``model32`` the same weights in float32 must agree within 1e-3."""
+    plain_path = logits_of(model, batch, max_len, **compare_impl)
+    token = plain_path[0][0].argmax(-1, keepdim=True)
+    kernel_path = logits_of(model, batch, max_len, token)
+    checks = {}
+    if spread is not None:
+        spread_run = agreement(logits_of(model, batch, max_len, token, **spread), plain_path,
+                               0.0)
+        tol = max(tol, 2 * max(spread_run["prefill_err"], spread_run["decode_err"]))
+        changed = {}
+        for k, v in spread.items():
+            if k == "cfg":      # the fields of the config that differ
+                changed.update({f.name: getattr(v, f.name) for f in dataclasses.fields(v)
+                                if getattr(v, f.name) != getattr(model.cfg, f.name)})
+            else:
+                changed[k] = v
+        checks["plain_vs_itself"] = {"changed": changed, **spread_run}
+    if model32 is not None:
+        plain32 = logits_of(model32, batch, max_len, **compare_impl)
+        token32 = plain32[0][0].argmax(-1, keepdim=True)
+        checks["float32"] = {"tolerance": 1e-3, "layers": model32.cfg.n_layers,
+                             **agreement(logits_of(model32, batch, max_len, token32), plain32,
+                                         1e-3)}
+    checks["bfloat16"] = {"tolerance": tol, **agreement(kernel_path, plain_path, tol)}
+    checks["logits_max_abs"] = float(plain_path[0][0].abs().max())
+    return checks
+
+
+def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, cuts=None,
+               fp32_layers=None, extra=None):
     """``Server.serve`` on the full-width ``arch`` (bf16, random weights from a
-    seed): 16 requests with prompts of 64-512 tokens through 8 slots, greedy,
-    after a warm-up request.  Every launch count is set to 0 just before the
-    run and read just after; ``expected(prefills, forwards)`` gives the count
-    each kernel must reach.  Then the logits of the first prompt's prefill and
+    seed; ``cuts`` changes the config, e.g. its depth, and is stated): 16
+    requests with prompts of 64-512 tokens through 8 slots, greedy, after a
+    warm-up request.  Every launch count is set to 0 just before the run and
+    read just after; ``expected(prefills, forwards)`` gives the count each
+    kernel must reach.  ``extra(ctx, server)`` then runs what the phase adds
+    (with its own counts) and returns more prompts for the logit checks and
+    fields to print.  Then the logits of each check prompt's prefill and
     first decode step through the kernels are held against those through
-    ``compare_impl`` (the plain PyTorch paths).
+    ``compare_impl`` (the plain PyTorch paths), by :func:`logit_checks`.
 
     In bf16 the two paths must agree within ``tol`` (reason: ``why``), or
     within twice the spread that the plain path shows against itself under
-    ``spread_cfg`` — a change of the config that leaves the function as it is
-    and only moves roundings — where that is larger; whether they pick the
-    same tokens is reported.  With ``spread_cfg`` given, the same weights in
-    float32 must also agree within 1e-3 and pick the same tokens: there the
-    two paths differ in the order of fp32 sums, and the decode step in at most
-    a rounding of the conv state, which is bfloat16 whatever the model's dtype."""
-    cfg = get_config(arch)
+    ``spread`` where that is larger; whether they pick the same tokens (and,
+    for a mixture of experts, the same experts) is reported.  With ``spread``
+    given, the same weights in float32 (the first ``fp32_layers`` layers
+    where the model in float32 would not fit beside its bf16 copy) must also
+    agree within 1e-3 and pick the same tokens on the first prompt.
+
+    The phase's model is its only one on the card: it is dropped at the end,
+    and the throughput line and the profile keep only what they need."""
+    cfg = dataclasses.replace(get_config(arch), **(cuts or {}))
     dev = DEVICE
     base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(seed=SERVE["seed"])
     scfg = ServeConfig(batch_slots=SERVE["batch_slots"], max_len=SERVE["max_len"],
@@ -750,7 +909,12 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     server = Server(cfg, scfg, model.state_dict(), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
     n_params = sum(p.numel() for p in server.model.parameters())
+    w_gb = weights_gb(server.model)
+    # the weights are drawn in place, block by block, and adopted: no second copy
+    require(init_peak_gb <= w_gb + 4.0, f"{cfg.name}: initialisation peak "
+            f"{init_peak_gb:.2f} GiB over {w_gb:.2f} GiB of weights")
 
     rng = np.random.default_rng(SERVE["seed"])
     lengths = rng.integers(64, 513, size=SERVE["n_requests"])
@@ -762,16 +926,27 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     warm = Server(cfg, dataclasses.replace(scfg, max_new_tokens=3), model.state_dict(), device=dev)
     warm.serve([Request(uid=-1, prompt=requests[0].prompt[:64])])
     torch.cuda.synchronize()
+    del warm, model
 
     # count and time forward passes by wrapping the two step functions of the
-    # server; the synchronise is the one sampling makes anyway right after
+    # server; the synchronise is the one sampling makes anyway right after.
+    # A mixture of experts also counts its layers' calls by path and step
     steps = {"prefill": 0, "decode": 0}
     step_ms = {"prefill": [], "decode": []}
     nan_seen = []
+    current = {"step": None}
+    moe_calls = {k: {"capacity": 0, "exact": 0} for k in steps}
+    moe_ffn = transformer.moe_ffn
+
+    def moe_counted(x, *args, **kw):
+        path = "capacity" if x.shape[0] > transformer.DENSE_PATH_MAX_TOKENS else "exact"
+        moe_calls[current["step"]][path] += 1
+        return moe_ffn(x, *args, **kw)
 
     def counted(fn, key):
         def wrapper(*args):
             steps[key] += 1
+            current["step"] = key
             t = time.perf_counter()
             logits, state = fn(*args)
             torch.cuda.synchronize()
@@ -784,12 +959,16 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     server._decode = counted(server._decode, "decode")
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()                  # the path starts here
-    t0 = time.perf_counter()
-    done = server.serve(requests)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = read_counts()        # ... and ends here
+    transformer.moe_ffn = moe_counted
+    try:
+        reset_counts()              # the path starts here
+        t0 = time.perf_counter()
+        done = server.serve(requests)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()    # ... and ends here
+    finally:
+        transformer.moe_ffn = moe_ffn
     attn_paths = dict(fa.flash_attention.launches_by_path)
     ssd_paths = dict(ssd.mamba2_ssd.launches_by_path)
     # this path's own: the memory held before its model was made is not counted
@@ -797,7 +976,6 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     ctx.setdefault("launches", {})[phase] = launches
     ctx.setdefault("attention_paths", {})[phase] = attn_paths
     ctx.setdefault("ssd_paths", {})[phase] = ssd_paths
-    ctx.setdefault("servers", {})[cfg.name] = server
 
     require([c.uid for c in done] == list(range(SERVE["n_requests"])), "completions out of order")
     require(all(len(c.tokens) == SERVE["max_new_tokens"] for c in done), "a completion is short")
@@ -815,61 +993,65 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
     if launches["mamba2_ssd"]:  # bf16 serving: every prefill layer on the tensor cores
         require(ssd_paths == {"fma": 0, "mma": launches["mamba2_ssd"]},
                 f"{cfg.name}: SSD paths {ssd_paths}, expected mma only")
-
-    # the same logits through the plain PyTorch paths, on the card
-    tokens = torch.from_numpy(requests[0].prompt[None]).to(dev)
-
-    def logits_of(model_k, **attrs):
-        kept = {k: getattr(model_k, k) for k in attrs}
-        for k, v in attrs.items():
-            setattr(model_k, k, v)
-        try:
-            h, state = model_k.prefill({"tokens": tokens}, scfg.max_len)
-            pre = model_k.logits(h[:, -1:])[:, 0].float()
-            h, state = model_k.decode_step(pre.argmax(-1, keepdim=True), state)
-            return pre, model_k.logits(h[:, -1:])[:, 0].float()
-        finally:
-            for k, v in kept.items():
-                setattr(model_k, k, v)
-
-    def agreement(got, want_, tol_):
-        (pre_k, dec_k), (pre_c, dec_c) = got, want_
-        err_pre, ok_pre = compare(pre_k, pre_c, tol_)
-        err_dec, ok_dec = compare(dec_k, dec_c, tol_)
-        argmax = [bool((pre_k.argmax(-1) == pre_c.argmax(-1)).all()),
-                  bool((dec_k.argmax(-1) == dec_c.argmax(-1)).all())]
-        return {"prefill_err": err_pre, "decode_err": err_dec, "argmax_agrees": argmax,
-                "within": ok_pre and ok_dec}
-
-    kernel_path = logits_of(server.model)
-    plain_path = logits_of(server.model, **compare_impl)
-    checks = {}
-    if spread_cfg is not None:
-        spread = agreement(logits_of(server.model, cfg=dataclasses.replace(cfg, **spread_cfg),
-                                     **compare_impl), plain_path, 0.0)
-        tol = max(tol, 2 * max(spread["prefill_err"], spread["decode_err"]))
-        checks["plain_vs_itself"] = {"changed": spread_cfg, **spread}
-        # the same weights in float32: the paths differ only in the order of sums
-        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-        model32 = Model(cfg32, attn_impl=server.model.attn_impl, ssd_impl="hopper", device=dev)
-        model32.load_state_dict(server.model.state_dict())
-        fp32 = agreement(logits_of(model32), logits_of(model32, **compare_impl), 1e-3)
-        checks["float32"] = {"tolerance": 1e-3, **fp32}
-        del model32
-    bf16 = agreement(kernel_path, plain_path, tol)
-    checks["bfloat16"] = {"tolerance": tol, **bf16}
-    torch.cuda.synchronize()
+    moe_paths = None
+    if cfg.moe is not None:
+        # prompts above 256 tokens take the capacity path; the rest, and every
+        # decode step at 8 slots, the exact one
+        L = cfg.n_layers
+        long_prompts = int((lengths > transformer.DENSE_PATH_MAX_TOKENS).sum())
+        moe_paths = {"prefills_capacity": moe_calls["prefill"]["capacity"] // L,
+                     "prefills_exact": moe_calls["prefill"]["exact"] // L,
+                     "decode_steps_exact": moe_calls["decode"]["exact"] // L,
+                     "decode_steps_capacity": moe_calls["decode"]["capacity"] // L}
+        require(all(n % L == 0 for calls in moe_calls.values() for n in calls.values()),
+                f"{cfg.name}: MoE calls {moe_calls} are not whole forward passes")
+        require(moe_paths == {"prefills_capacity": long_prompts,
+                              "prefills_exact": steps["prefill"] - long_prompts,
+                              "decode_steps_exact": steps["decode"],
+                              "decode_steps_capacity": 0},
+                f"{cfg.name}: MoE paths {moe_paths} for {long_prompts} prompts over 256 tokens")
     snap = server.metrics_snapshot()
+    ctx.setdefault("snapshots", {})[cfg.name] = snap
+
+    # what the phase adds, then the logit checks on every prompt
+    prompts = [("first request", {"tokens": torch.from_numpy(requests[0].prompt[None]).to(dev)},
+                scfg.max_len)]
+    added = {}
+    if extra is not None:
+        more, added = extra(ctx, server)
+        prompts += more
+    checks = {}
+    for i, (name, batch, max_len) in enumerate(prompts):
+        model32 = None
+        if spread is not None and i == 0:   # the float32 check: on the first prompt
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                        n_layers=fp32_layers or cfg.n_layers)
+            model32 = Model(cfg32, attn_impl=server.model.attn_impl, ssd_impl="hopper",
+                            device=dev)
+            model32.load_state_dict({
+                k: v[:cfg32.n_layers] if k.startswith("layers.") else v
+                for k, v in server.model.state_dict().items()})
+        checks[name] = logit_checks(server.model, batch, max_len, compare_impl, tol, spread,
+                                    model32)
+        del model32
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    first = checks["first request"]
+    bf16 = first["bfloat16"]
     emit(phase, model=cfg.name, family=cfg.family, layers=cfg.n_layers, d_model=cfg.d_model,
-         heads=cfg.n_heads, head_dim=cfg.dh, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.dh, d_ff=cfg.d_ff,
+         vocab=cfg.vocab,
          ssm=dict(heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
-                  attn_period=cfg.attn_period) if cfg.family != "dense" else None,
-         dtype="bfloat16", params=n_params,
-         init_seconds=round(init_s, 3), serve_seconds=round(serve_s, 3),
+                  attn_period=cfg.attn_period) if cfg.family in ("ssm", "hybrid") else None,
+         moe=dataclasses.asdict(cfg.moe) if cfg.moe is not None else None,
+         cuts=cuts or {}, dtype="bfloat16", params=n_params, weights_gb=round(w_gb, 3),
+         init_seconds=round(init_s, 3), init_peak_gb=round(init_peak_gb, 3),
+         serve_seconds=round(serve_s, 3),
          requests=len(done), prompt_lengths=[int(n) for n in lengths],
          tokens=sum(len(c.tokens) for c in done), prefills=steps["prefill"],
          decode_steps=steps["decode"], kernel_launches=launches, expected_launches=want,
          attention_launches_by_path=attn_paths, ssd_launches_by_path=ssd_paths,
+         moe_paths=moe_paths,
          prefill_ms_mean=round(float(np.mean(step_ms["prefill"])), 3),
          decode_step_ms_mean=round(float(np.mean(step_ms["decode"])), 3),
          decode_step_ms_p50=round(float(np.median(step_ms["decode"])), 3),
@@ -877,20 +1059,30 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread_cfg=No
          decode_step_ms_all=[round(t, 1) for t in step_ms["decode"]],
          peak_memory_gb=round(peak_gb, 3), tokens_per_s=snap["tokens_per_s"],
          latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
-         compared_with=compare_impl, logits_max_abs=float(plain_path[0].abs().max()),
+         compared_with=compare_impl, logits_max_abs=first["logits_max_abs"],
          prefill_logits_err=bf16["prefill_err"], decode_logits_err=bf16["decode_err"],
-         argmax_agrees=bf16["argmax_agrees"], tolerance=tol, tolerance_reason=why,
-         checks=checks, card=ctx.get("card"), first_completion=done[0].tokens[:8])
-    require(bf16["within"], f"{cfg.name}: kernel path and plain path disagree on the logits")
-    if "float32" in checks:
-        require(checks["float32"]["within"] and all(checks["float32"]["argmax_agrees"]),
-                f"{cfg.name}: kernel path and plain path disagree on the float32 logits")
-    return server
+         argmax_agrees=bf16["argmax_agrees"], tolerance=bf16["tolerance"],
+         tolerance_reason=why, checks=first,
+         more_checks={k: v for k, v in checks.items() if k != "first request"}, **added,
+         card=ctx.get("card"), first_completion=done[0].tokens[:8])
+    for name, check in checks.items():
+        require(check["bfloat16"]["within"],
+                f"{cfg.name}, {name}: kernel path and plain path disagree on the logits")
+        if "float32" in check:
+            require(check["float32"]["within"] and all(check["float32"]["argmax_agrees"]),
+                    f"{cfg.name}, {name}: kernel path and plain path disagree on the float32 "
+                    f"logits")
+    if ctx.get("profile"):
+        profile_server(ctx, server)
+    # the next phase starts with an empty card: this one's weights go
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_serve(ctx):
     cfg = get_config("stablelm_3b")
-    ctx["server"] = serve_path(
+    serve_path(
         ctx, "serve", "stablelm_3b",
         lambda prefills, forwards: {"flash_attention": cfg.n_layers * forwards, "mamba2_ssd": 0},
         {"attn_impl": "chunked"}, 1e-1,
@@ -904,7 +1096,11 @@ SSD_WHY = ("the kernel and ssd_chunked both return fp32 y, summed in another ord
            "other way, and such one-ulp differences carry through the layers; 1e-1 as in the "
            "dense path, or twice the spread of ssd_chunked against itself at chunk 64, "
            "which moves only roundings, where that is larger")
-SSD_SPREAD = {"ssm_chunk": 64}
+
+
+def ssd_spread(arch):
+    """``ssd_chunked`` at chunk 64: the same function, other roundings."""
+    return {"cfg": dataclasses.replace(get_config(arch), ssm_chunk=64), "ssd_impl": "chunked"}
 
 
 def phase_serve_mamba2(ctx):
@@ -912,7 +1108,7 @@ def phase_serve_mamba2(ctx):
     serve_path(ctx, "serve_mamba2", "mamba2_370m",
                lambda prefills, forwards: {"flash_attention": 0,
                                            "mamba2_ssd": cfg.n_layers * prefills},
-               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, SSD_SPREAD)
+               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, ssd_spread("mamba2_370m"))
 
 
 def phase_serve_zamba2(ctx):
@@ -923,7 +1119,139 @@ def phase_serve_zamba2(ctx):
     serve_path(ctx, "serve_zamba2", "zamba2_2_7b",
                lambda prefills, forwards: {"flash_attention": apps * forwards,
                                            "mamba2_ssd": cfg.n_layers * prefills},
-               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, SSD_SPREAD)
+               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, ssd_spread("zamba2_2_7b"))
+
+
+ATTN_WHY = ("bf16: the kernel and attention_chunked round each layer's attention output on "
+            "their own, and a token whose top-k routing is a near tie may then take another "
+            "expert on the two paths; 1e-1 as in the dense path, or twice the spread of "
+            "attention 'xla' against 'chunked' (the same function, other roundings) where that "
+            "is larger")
+ATTN_SPREAD = {"attn_impl": "xla"}
+
+
+def attention_launches(layers):
+    return lambda prefills, forwards: {"flash_attention": layers * forwards, "mamba2_ssd": 0}
+
+
+def phase_serve_qwen2_moe(ctx):
+    """qwen2_moe_a2_7b at full width and depth; the float32 check at 2 of its
+    24 layers (53 GiB in float32 would not fit beside the bf16 copy)."""
+    serve_path(ctx, "serve_qwen2_moe", "qwen2_moe_a2_7b",
+               attention_launches(get_config("qwen2_moe_a2_7b").n_layers),
+               {"attn_impl": "chunked"}, 1e-1, ATTN_WHY, ATTN_SPREAD, fp32_layers=2)
+
+
+#: qwen2_vl_2b's vision prefix: 256 patches of a 16 x 16 grid
+N_PATCHES, GRID = 256, 16
+
+
+def vision_prefix(ctx, server):
+    """A 512-token prompt whose first 256 embeddings are seeded bf16 patch
+    embeddings, with M-RoPE positions (patch ``i`` at ``(0, i // 16, i % 16)``,
+    text token ``j`` at ``16 + j`` on all three streams), prefilled through
+    ``Model.prefill``, then 8 greedy decode steps with 1-D positions, as the
+    reference decodes; every layer of every pass through the kernel."""
+    model, cfg = server.model, server.model.cfg
+    rng = np.random.default_rng(SERVE["seed"] + 7)
+    S = 512
+    pos = np.zeros((1, S, 3), np.int32)
+    i = np.arange(N_PATCHES)
+    pos[0, :N_PATCHES] = np.stack([np.zeros_like(i), i // GRID, i % GRID], -1)
+    pos[0, N_PATCHES:] = (GRID + np.arange(S - N_PATCHES))[:, None]
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, S))).to(DEVICE),
+             "patch_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, N_PATCHES, cfg.d_model), dtype=np.float32)).to(DEVICE).bfloat16(),
+             "mrope_positions": torch.from_numpy(pos).to(DEVICE)}
+    reset_counts()
+    h, state = model.prefill(batch, SERVE["max_len"])
+    tokens = [model.logits(h[:, -1:])[:, 0].argmax(-1, keepdim=True)]
+    for _ in range(8):
+        h, state = model.decode_step(tokens[-1], state)
+        tokens.append(model.logits(h[:, -1:])[:, 0].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    launches, paths = read_counts(), dict(fa.flash_attention.launches_by_path)
+    ctx["launches"]["serve_qwen2_vl:vision_prefix"] = launches
+    ctx["attention_paths"]["serve_qwen2_vl:vision_prefix"] = paths
+    want = {"flash_attention": cfg.n_layers * 9, "mamba2_ssd": 0}
+    require(launches == want and paths == {"fma": 0, "mma": cfg.n_layers,
+                                           "split": 8 * cfg.n_layers},
+            f"vision prefix: launches {launches} by path {paths}, expected {want}")
+    require(int(state["pos"][0]) == S + 8, "vision prefix: decode positions")
+    return ([("vision prefix", batch, SERVE["max_len"])],
+            {"vision_prefix": {"prompt": S, "patches": N_PATCHES, "grid": [GRID, GRID],
+                               "decode_steps": 8, "kernel_launches": launches,
+                               "attention_launches_by_path": paths,
+                               "tokens": [int(t) for t in torch.cat(tokens).flatten()]}})
+
+
+def phase_serve_qwen2_vl(ctx):
+    """qwen2_vl_2b at full width and depth, with its vision-prefix prefill."""
+    serve_path(ctx, "serve_qwen2_vl", "qwen2_vl_2b",
+               attention_launches(get_config("qwen2_vl_2b").n_layers),
+               {"attn_impl": "chunked"}, 1e-1, ATTN_WHY, ATTN_SPREAD, extra=vision_prefix)
+
+
+#: llama4_scout at full width, 4 of its 48 layers: one global period (three
+#: chunked RoPE layers, one global NoPE layer); 48 layers are 200.7 GiB in bf16
+LLAMA4_CUTS = {"n_layers": 4}
+LONG_PROMPT, LONG_MAX_LEN = 8448, 8704
+
+
+def long_prompt(ctx, server):
+    """One prompt of 8,448 tokens, across the 8,192-token attention chunk,
+    through a server of one slot with room for 8,704: a prefill (the
+    capacity path of every MoE layer) and 4 decode steps."""
+    cfg = server.model.cfg
+    rng = np.random.default_rng(SERVE["seed"] + 11)
+    prompt = rng.integers(0, cfg.vocab, size=LONG_PROMPT).astype(np.int32)
+    one = Server(cfg, ServeConfig(batch_slots=1, max_len=LONG_MAX_LEN, max_new_tokens=5, eos=-1),
+                 server.model.state_dict(), device=DEVICE)
+    step_ms = []
+    prefill = one._prefill
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = prefill(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    one._prefill = timed
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = one.serve([Request(uid=0, prompt=prompt)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, paths = read_counts(), dict(fa.flash_attention.launches_by_path)
+    ctx["launches"]["serve_llama4:long_prompt"] = launches
+    ctx["attention_paths"]["serve_llama4:long_prompt"] = paths
+    L = cfg.n_layers
+    want = {"flash_attention": L * 5, "mamba2_ssd": 0}
+    require(launches == want and paths == {"fma": 0, "mma": L, "split": 4 * L},
+            f"long prompt: launches {launches} by path {paths}, expected {want}")
+    require(len(done[0].tokens) == 5 and len(step_ms) == 1, "long prompt: not 5 tokens")
+    del one, prefill, timed
+    return ([("8,448-token prompt", {"tokens": torch.from_numpy(prompt[None]).to(DEVICE)},
+              LONG_MAX_LEN)],
+            {"long_prompt": {"tokens_in": LONG_PROMPT, "max_len": LONG_MAX_LEN,
+                             "attn_chunk": cfg.attn_chunk, "decode_steps": 4,
+                             "kernel_launches": launches, "attention_launches_by_path": paths,
+                             "seconds": round(seconds, 3),
+                             "prefill_ms": round(step_ms[0], 3),
+                             "peak_memory_gb": round(
+                                 (torch.cuda.max_memory_allocated() - base) / 2**30, 3),
+                             "tokens": done[0].tokens}})
+
+
+def phase_serve_llama4(ctx):
+    """llama4_scout_17b_a16e at full width and 4 of 48 layers, with one
+    8,448-token prompt; the float32 check at all 4 layers."""
+    serve_path(ctx, "serve_llama4", "llama4_scout_17b_a16e",
+               attention_launches(LLAMA4_CUTS["n_layers"]), {"attn_impl": "chunked"}, 1e-1,
+               ATTN_WHY, ATTN_SPREAD, cuts=LLAMA4_CUTS, extra=long_prompt)
 
 
 def time_ms(fn, warmup=3, iters=20):
@@ -1001,6 +1329,14 @@ def bound_visible(q, k, v, qpos, kpos):
             "bound_visible_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def sdpa(qt, kt, vt, attn_mask):
+    """The library's attention on the kernel's own inputs, in the library's
+    ``(B, H, S, Dh)`` layout: grouped-query heads by ``enable_gqa``, not by a
+    copy of K / V."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=attn_mask, enable_gqa=qt.shape[1] != kt.shape[1])
+
+
 def library_times(qt, kt, vt, mask, math=True):
     """``scaled_dot_product_attention`` under each backend that admits a boolean
     mask, timed as the kernel is (eager ``time_ms`` and device ``graph_ms``); a
@@ -1009,7 +1345,6 @@ def library_times(qt, kt, vt, mask, math=True):
     ``math`` False leaves out the backend that builds the whole score matrix."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     eager, device, refused = {}, {}, {}
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                 SDPBackend.CUDNN_ATTENTION] + ([SDPBackend.MATH] if math else [])
@@ -1031,29 +1366,38 @@ def library_times(qt, kt, vt, mask, math=True):
             "library_backends_refused": refused}
 
 
-#: the attention kernel's timed shapes (bf16, stablelm_3b's heads): two whose
-#: queries see every key of a full cache, two the serving path sends, and a
-#: 4,096-token causal prompt, whose grid (2,048 mma blocks) fills the card many
-#: times over where the serving shapes' 256 blocks are one wave
+#: the attention kernel's timed shapes (bf16) and where their queries sit:
+#: stablelm_3b's heads with queries that see every key of a full cache ("full":
+#: the newest token; "end": the last 512), as the serving path sends them
+#: ("serve": slots of 64-544 tokens in a 1,024-slot cache; "prompt": a prompt
+#: from position 0), and a 4,096-token causal prompt, whose grid (2,048 mma
+#: blocks) fills the card many times over where the serving shapes' 256 blocks
+#: are one wave; then the heads of 128 of qwen2_moe (16/16) and qwen2_vl (12/2)
+#: at their serving shapes
 ATTN_TIMED = {
-    "decode": (8, 1, 1024, 32, 32, 80),
-    "prefill": (1, 512, 1024, 32, 32, 80),
-    "serve_decode": (8, 1, 1024, 32, 32, 80),
-    "serve_prefill": (1, 512, 1024, 32, 32, 80),
-    "long_prefill": (1, 4096, 4096, 32, 32, 80),
+    "decode": ((8, 1, 1024, 32, 32, 80), "full"),
+    "prefill": ((1, 512, 1024, 32, 32, 80), "end"),
+    "serve_decode": ((8, 1, 1024, 32, 32, 80), "serve"),
+    "serve_prefill": ((1, 512, 1024, 32, 32, 80), "prompt"),
+    "long_prefill": ((1, 4096, 4096, 32, 32, 80), "prompt"),
+    "qwen2_moe_decode": ((8, 1, 1024, 16, 16, 128), "serve"),
+    "qwen2_moe_prefill": ((1, 512, 1024, 16, 16, 128), "prompt"),
+    "qwen2_vl_decode": ((8, 1, 1024, 12, 2, 128), "serve"),
 }
+QUERY_POSITIONS = {"full": "the last of a full cache", "end": "the last of a full cache",
+                   "serve": "what Server.serve sends", "prompt": "a prompt from position 0"}
 
 
 def phase_kernels(ctx):
     rows = {}
-    for name, shape in ATTN_TIMED.items():
+    for name, (shape, where) in ATTN_TIMED.items():
         q, k, v, qpos, kpos = make_case(*shape, torch.bfloat16)
-        if name == "decode":   # the query is the newest token of a full cache
+        if where == "full":     # the query is the newest token of a full cache
             qpos = torch.full((shape[0], 1), shape[2] - 1, dtype=torch.int32, device=q.device)
-        elif name == "serve_decode":   # slots of 64-544 tokens in a 1,024-slot cache
+        elif where == "serve":  # slots of 64-544 tokens in a 1,024-slot cache
             qpos = torch.as_tensor(serve_lengths(shape[0])[:, None] - 1, dtype=torch.int32,
                                    device=q.device)
-        elif name in ("serve_prefill", "long_prefill"):  # a prompt from position 0
+        elif where == "prompt":  # a prompt from position 0
             qpos = torch.arange(shape[1], dtype=torch.int32, device=q.device)[None]
         plan = fa.choose_tile(shape[1], shape[2], shape[5], dtype=q.dtype,
                               groups=shape[3] // shape[4], batch_kv_heads=shape[0] * shape[4])
@@ -1063,7 +1407,7 @@ def phase_kernels(ctx):
         require(ok, f"kernel disagrees with its plain version at the {name} shape")
         mask = ref.attention_mask(qpos[:, None, :, None], kpos[:, None, None, :])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib = sdpa(qt, kt, vt, attn_mask=mask)
         err_lib, _ = compare(got, lib.transpose(1, 2), TOL[torch.bfloat16])
         # the same kernel on copies that are not 16-byte aligned: its element-wise loads
         qm, km, vm = misaligned(q), misaligned(k), misaligned(v)
@@ -1091,9 +1435,7 @@ def phase_kernels(ctx):
         d_scalar = graph_ms(run_scalar)
         rows[name] = {"shape": dict(zip(("B", "Sq", "Skv", "Hq", "Hkv", "Dh"), shape)),
                       "dtype": "bfloat16", "path": plan.path, "plan": dataclasses.asdict(plan),
-                      "query_positions": ("the last of a full cache" if name in ("decode", "prefill")
-                                          else "a prompt from position 0" if name == "long_prefill"
-                                          else "what Server.serve sends"),
+                      "query_positions": QUERY_POSITIONS[where],
                       "max_abs_err": err, "err_vs_library": err_lib,
                       "kernel_ms": min(t_kernel), "kernel_ms_runs": t_kernel,
                       "kernel_ms_scalar_loads": min(t_scalar),
@@ -1210,10 +1552,9 @@ def ssd_entry(ctx):
 
 
 def phase_serve_throughput(ctx):
-    servers = ctx.get("servers")
-    require(servers, "serve_throughput needs a serving phase")
-    for name, server in servers.items():
-        snap = server.metrics_snapshot()
+    snapshots = ctx.get("snapshots")
+    require(snapshots, "serve_throughput needs a serving phase")
+    for name, snap in snapshots.items():
         emit("serve_throughput", model=name, card=ctx.get("card"),
              tokens_per_s=snap["tokens_per_s"],
              completions=snap["completions"], tokens=snap["tokens"],
@@ -1256,43 +1597,51 @@ def _device_profile(fn, repeats):
                     for us, k, c in rows[:10]]}
 
 
+def profile_server(ctx, server):
+    """Device time by kernel from ``torch.profiler`` for one served model:
+    over decode steps of the model at 8 slots (cache filled by a 256-token
+    prefill), and over the prefill of one 512-token prompt; the busy share is
+    device time over host wall time.  Run by each serving phase while its
+    model is on the card, when the ``profile`` phase is asked for."""
+    model, cfg = server.model, server.model.cfg
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(8, 256))).to(model.device)
+    _, state = model.prefill({"tokens": tokens}, SERVE["max_len"])
+    step = tokens[:, :1]
+
+    def decode():
+        nonlocal state
+        h, state = model.decode_step(step, state)
+        model.logits(h).argmax(-1).cpu()
+
+    for _ in range(3):
+        decode()
+    torch.cuda.synchronize()
+    dec = _device_profile(decode, 5)
+    prompt = tokens[:1].repeat(1, 2)                       # one prompt of 512 tokens
+
+    def prefill():
+        h, _ = model.prefill({"tokens": prompt}, SERVE["max_len"])
+        model.logits(h[:, -1:]).argmax(-1).cpu()
+
+    prefill()
+    torch.cuda.synchronize()
+    pre = _device_profile(prefill, 3)
+    ctx.setdefault("profiled", []).append(cfg.name)
+    emit("profile", model=cfg.name, layers=cfg.n_layers, card=ctx.get("card"), batch=8,
+         decode_steps=5, wall_ms_per_step=dec["wall_ms"], device_ms_per_step=dec["device_ms"],
+         device_busy_share=dec["device_busy_share"],
+         device_kernels_per_step=dec["device_kernels"], top=dec["top"],
+         decode=dec, prefill_512={"prompts": 3, **pre})
+
+
 def phase_profile(ctx):
-    """For each served model, device time by kernel from ``torch.profiler``:
-    over decode steps of the full-width model at 8 slots (cache filled by a
-    256-token prefill), and over the prefill of one 512-token prompt; the busy
-    share is device time over host wall time."""
-    servers = ctx.get("servers")
-    require(servers, "profile needs a serving phase")
-    for name, server in servers.items():
-        model, cfg = server.model, server.model.cfg
-        rng = np.random.default_rng(2)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(8, 256))).to(model.device)
-        _, state = model.prefill({"tokens": tokens}, SERVE["max_len"])
-        step = tokens[:, :1]
-
-        def decode():
-            nonlocal state
-            h, state = model.decode_step(step, state)
-            model.logits(h).argmax(-1).cpu()
-
-        for _ in range(3):
-            decode()
-        torch.cuda.synchronize()
-        dec = _device_profile(decode, 5)
-        prompt = tokens[:1].repeat(1, 2)                       # one prompt of 512 tokens
-
-        def prefill():
-            h, _ = model.prefill({"tokens": prompt}, SERVE["max_len"])
-            model.logits(h[:, -1:]).argmax(-1).cpu()
-
-        prefill()
-        torch.cuda.synchronize()
-        pre = _device_profile(prefill, 3)
-        emit("profile", model=name, card=ctx.get("card"), batch=8, decode_steps=5,
-             wall_ms_per_step=dec["wall_ms"], device_ms_per_step=dec["device_ms"],
-             device_busy_share=dec["device_busy_share"],
-             device_kernels_per_step=dec["device_kernels"], top=dec["top"],
-             decode=dec, prefill_512={"prompts": 3, **pre})
+    """The serving phases profiled their models while each was on the card
+    (one full-width model at a time): every served model must have been."""
+    served = sorted(ctx.get("snapshots", {}))
+    require(served, "profile needs a serving phase")
+    require(sorted(ctx.get("profiled", [])) == served,
+            f"profiled {ctx.get('profiled')}, served {served}")
 
 
 def main(argv=None) -> int:
@@ -1309,10 +1658,13 @@ def main(argv=None) -> int:
               "CPU fallback", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 comparisons are in full fp32
-    ctx = {}
+    t_run = time.perf_counter()
+    ctx = {"profile": "profile" in wanted}
     for phase in PHASES + EXTRA_PHASES:
         if phase in wanted:
             globals()[f"phase_{phase}"](ctx)
+    emit("run", seconds=round(time.perf_counter() - t_run, 3), phases=wanted,
+         peak_memory_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     if "card" in ctx:
         print(ctx["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

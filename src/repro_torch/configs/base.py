@@ -4,7 +4,8 @@ Counterpart of ``repro.configs.base``.  Every ported architecture is
 selectable by id; ``reduced_config`` gives the small smoke-test variant of
 the same family.  ``CONFIG`` and ``REDUCED`` of each module equal the
 reference's field for field (``dtype`` is the torch type).  ``ARCH_IDS``
-lists only what is ported so far; the shape cells of the dry-run follow with
+lists only what is ported so far (all but whisper_large_v3, whose family comes
+with the encoder-decoder slice); the shape cells of the dry-run follow with
 the launch slice.
 """
 
@@ -21,6 +22,9 @@ ARCH_IDS = [
     "gemma3_1b",
     "qwen2_7b",
     "granite_8b",
+    "qwen2_moe_a2_7b",
+    "llama4_scout_17b_a16e",
+    "qwen2_vl_2b",
     "mamba2_370m",
     "zamba2_2_7b",
 ]
@@ -50,23 +54,29 @@ def all_configs() -> Dict[str, ModelConfig]:
 def param_count(cfg: ModelConfig) -> int:
     """Parameter count by the reference's formula, for the ported families.
 
-    Exact for the dense family but for the final norm.  For ``ssm`` and
-    ``hybrid`` the reference also leaves out a mamba layer's ``conv_b`` and its
-    three per-head vectors (``a_log``, ``d_skip``, ``dt_bias``), and the hybrid's
-    two shared-block norms; the port keeps the formula so that the two counts
-    stay equal."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
+    Exact for the dense, moe and vlm families but for the final norm (and
+    the vlm's ``patch_proj``).  For ``ssm`` and ``hybrid`` the reference also
+    leaves out a mamba layer's ``conv_b`` and its three per-head vectors
+    (``a_log``, ``d_skip``, ``dt_bias``), and the hybrid's two shared-block
+    norms; the port keeps the formula so that the two counts stay equal."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(f"param_count: family {cfg.family!r} is not ported yet")
     D, L, V, F = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.d_ff
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     total = V * D  # embed
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         if not cfg.tie_embeddings:
             total += D * V
         per = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 2 * D
         if cfg.qkv_bias:
             per += Hq * Dh + 2 * Hkv * Dh
-        per += 3 * D * F
+        if cfg.moe is None:
+            per += 3 * D * F
+        else:
+            m = cfg.moe
+            per += D * m.n_experts + 3 * m.n_experts * D * m.d_ff_expert
+            if m.n_shared:
+                per += 3 * D * m.d_ff_shared + (D if m.shared_gate else 0)
         return total + L * per
     d_inner, conv_dim = mamba_dims(D, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
@@ -74,3 +84,22 @@ def param_count(cfg: ModelConfig) -> int:
     if cfg.family == "hybrid":  # the one shared block
         total += D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token passes through: :func:`param_count` but for a
+    mixture of experts, where only ``top_k`` routed experts count (and, as in
+    the reference, neither the norms nor the shared expert's gate)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    m = cfg.moe
+    D, L = cfg.d_model, cfg.n_layers
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    total = cfg.vocab * D
+    if not cfg.tie_embeddings:
+        total += D * cfg.vocab
+    per = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
+    per += D * m.n_experts + 3 * m.top_k * D * m.d_ff_expert
+    if m.n_shared:
+        per += 3 * D * m.d_ff_shared
+    return total + L * per

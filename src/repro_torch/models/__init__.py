@@ -3,12 +3,12 @@
 Counterpart of ``repro.models``: ``Model`` dispatches on
 ``ModelConfig.family``.  Ported so far:
 
-* ``dense``  -> :mod:`repro_torch.models.transformer`
+* ``dense`` / ``moe`` / ``vlm`` -> :mod:`repro_torch.models.transformer`
 * ``ssm``    -> a pure Mamba2 stack (:mod:`repro_torch.models.mamba2`)
 * ``hybrid`` -> :mod:`repro_torch.models.hybrid` (Zamba2)
 
-The ``moe`` / ``vlm`` / ``audio`` families raise ``NotImplementedError``
-until their slices land.
+The ``audio`` family raises ``NotImplementedError`` until the
+encoder-decoder slice lands.
 
 ``Model`` is an ``nn.Module`` that owns the layer-stacked parameters under the
 reference's key names, each in the reference's dtype (:func:`param_dtypes`:
@@ -16,8 +16,10 @@ reference's key names, each in the reference's dtype (:func:`param_dtypes`:
 ``state_dict()`` / ``load_state_dict()`` speak the reference's tree (see
 :mod:`repro_torch.convert`).  The entry points used by the server:
 
-    init(generator)                 -> self, parameters drawn at random
-    prefill(batch, max_len)         -> (hidden, cache_state)
+    init(generator)                 -> self, parameters drawn at random, in place
+    prefill(batch, max_len)         -> (hidden, cache_state); batch["tokens"], and
+                                       for the vlm batch["patch_embeds"] and
+                                       batch["mrope_positions"] where given
     decode_step(tokens, state)      -> (hidden, new_state)
     logits(hidden)                  -> vocabulary logits
 """
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from . import hybrid, mamba2, transformer
+from . import common, hybrid, mamba2, transformer
 from .common import rms_norm
 from .transformer import BIG, ModelConfig, MoEConfig
 
@@ -38,8 +40,10 @@ __all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dt
 
 State = Dict[str, Any]
 
-PORTED = ("dense", "ssm", "hybrid")
-_LATER = {"moe": "the MoE slice", "vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: what the transformer path serves
+_TRANSFORMER = ("dense", "moe", "vlm")
+_LATER = {"audio": "the encoder-decoder slice"}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -54,7 +58,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Flat ``name -> shape`` of the model's parameters, for every ported
     family (dots separate the levels of the reference's tree)."""
     _require_ported(cfg)
-    if cfg.family == "dense":
+    if cfg.family in _TRANSFORMER:
         return transformer.param_shapes(cfg)
     if cfg.family == "hybrid":
         return hybrid.param_shapes(cfg)
@@ -78,9 +82,14 @@ def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
 
 
 class Model(nn.Module):
+    """``storage`` is where the parameters' storage is allocated: zeros on
+    the model's ``device`` by default, ``"meta"`` for none, for a caller that
+    hands every parameter over with ``load_state_dict(..., assign=True)``
+    (the server does so)."""
+
     def __init__(
         self, cfg: ModelConfig, attn_impl: str = "chunked", ssd_impl: str = "chunked",
-        device: DeviceLike = "cuda",
+        device: DeviceLike = "cuda", *, storage: Optional[DeviceLike] = None,
     ):
         super().__init__()
         _require_ported(cfg)
@@ -90,12 +99,13 @@ class Model(nn.Module):
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
         self.device = resolve_device(device)
+        storage = self.device if storage is None else torch.device(storage)
         # storage only; init() or load_state_dict() gives it values.  This slice
         # serves: the parameters ask for no gradients until the trainer is ported
         dtypes = param_dtypes(cfg)
         for name, shape in param_shapes(cfg).items():
             param = nn.Parameter(
-                torch.zeros(shape, dtype=dtypes[name], device=self.device), requires_grad=False
+                torch.zeros(shape, dtype=dtypes[name], device=storage), requires_grad=False
             )
             if "." in name:   # layers.*, mamba.*, shared_attn.*: one ParameterDict each
                 group, leaf = name.split(".", 1)
@@ -107,30 +117,30 @@ class Model(nn.Module):
 
     # -- parameters ------------------------------------------------------------
 
+    @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None, seed: int = 0) -> "Model":
         """Draw every parameter at random from ``generator`` (one on the
-        model's device, seeded with ``seed``, if none is given)."""
+        model's device, seeded with ``seed``, if none is given), in place:
+        a large leaf block by block, so the only memory beyond the weights is
+        one block's float32 draw."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        if cfg.family == "dense":
-            fresh = transformer.init_params(cfg, generator, device=self.device)
+        params = dict(self.named_parameters())
+        if cfg.family in _TRANSFORMER:
+            transformer.fill_params(cfg, params, generator)
         elif cfg.family == "hybrid":
-            fresh = hybrid.init_params(cfg, generator, device=self.device)
+            hybrid.fill_params(cfg, params, generator)
         else:
             # the reference draws the ssm family's embedding from a plain normal
-            embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                                device=self.device) * 0.02
-            layers = mamba2.init_mamba_layers(
-                generator, cfg.n_layers, cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim,
-                cfg.ssm_state, dtype=cfg.dtype, device=self.device,
+            for part in common.draw_blocks(params["embed"], common.DRAW_BLOCK):
+                part.copy_(torch.randn(part.shape, generator=generator, device=self.device)
+                           .mul_(0.02))
+            mamba2.fill_mamba_layers(
+                {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("mamba.")},
+                generator, cfg.d_model,
             )
-            fresh = {"embed": embed.to(cfg.dtype),
-                     **{f"mamba.{k}": v for k, v in layers.items()},
-                     "final_ln": torch.zeros(cfg.d_model, dtype=cfg.dtype, device=self.device)}
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                p.copy_(fresh.pop(name))
+            params["final_ln"].zero_()
         return self
 
     @property
@@ -190,6 +200,7 @@ class Model(nn.Module):
         h, caches = transformer.forward(
             cfg, self.params, tokens, attn_impl=self.attn_impl,
             kv_caches=caches, cache_positions=self._cache_positions(B, max_len),
+            patch_embeds=batch.get("patch_embeds"), mrope_positions=batch.get("mrope_positions"),
         )
         return h, {"kv": caches, "pos": pos}
 
@@ -197,7 +208,8 @@ class Model(nn.Module):
     def decode_step(self, tokens: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
         """One new token per sequence against the cached state.  The caches
         and states in ``state`` are updated in place; the returned state
-        shares them."""
+        shares them.  Positions are the 1-D ``state["pos"]``: a vlm decodes
+        with plain RoPE after an M-RoPE prefill, as the reference does."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = state["pos"] + 1
@@ -222,6 +234,6 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.family == "dense":
+        if self.cfg.family in _TRANSFORMER:   # lm_head, or embed.T where tied
             return transformer.lm_head(self.cfg, self.params, h)
         return h @ self.embed.T.to(h.dtype)   # ssm and hybrid tie their embedding

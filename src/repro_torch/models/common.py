@@ -8,15 +8,15 @@ the stacked leading axis in Python, so there is no ``scan`` here.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels.ref import NEG_INF, floor_div
 
 __all__ = [
-    "NEG_INF", "trunc_normal", "rms_norm", "rope_frequencies", "rope_sin_cos", "apply_rope",
-    "swiglu", "causal_mask_bias",
+    "NEG_INF", "trunc_normal", "trunc_normal_", "rms_norm", "rope_frequencies", "rope_sin_cos",
+    "apply_rope", "mrope_sin_cos", "apply_mrope", "swiglu", "causal_mask_bias",
 ]
 
 # ---------------------------------------------------------------------------
@@ -25,23 +25,55 @@ __all__ = [
 
 _SQRT2 = math.sqrt(2.0)
 
+#: the most elements a draw holds in float32 at once (256 MiB): a large leaf
+#: is drawn block by block straight into its storage
+DRAW_BLOCK = 1 << 26
+
+
+def draw_blocks(t: torch.Tensor, limit: int) -> Iterator[torch.Tensor]:
+    """Views of ``t`` along its leading axes, in order, each of at most
+    ``limit`` elements unless one row of the last axis holds more: a
+    layer-stacked leaf goes a group of layers, one layer, or a part of one
+    layer at a time."""
+    if t.numel() <= limit or t.dim() == 1:
+        yield t
+        return
+    row = t[0].numel()
+    if row > limit:
+        for part in t:
+            yield from draw_blocks(part, limit)
+        return
+    step = limit // row
+    for i in range(0, t.shape[0], step):
+        yield t[i:i + step]
+
+
+def trunc_normal_(out: torch.Tensor, generator: torch.Generator, std: float) -> torch.Tensor:
+    """Fills ``out`` in place with a normal truncated to [-2, 2] standard
+    deviations, times ``std``, and returns it.
+
+    Drawn in fp32 by inverting the normal CDF on uniforms from ``generator``
+    (which must live on ``out``'s device), then cast, :data:`DRAW_BLOCK`
+    elements at a time at most (:func:`draw_blocks`): the fp32 temporary is
+    one block's, never the leaf's.  The numbers differ from the
+    reference's for the same seed: parity tests carry weights across instead.
+    """
+    lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
+    hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
+    for part in draw_blocks(out, DRAW_BLOCK):
+        u = torch.rand(part.shape, generator=generator, dtype=torch.float32, device=out.device)
+        u.mul_(hi - lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
+        part.copy_(u.mul_(std))
+    return out
+
 
 def trunc_normal(
     generator: torch.Generator, shape: Sequence[int], std: float,
     dtype: torch.dtype = torch.float32, device="cpu",
 ) -> torch.Tensor:
-    """Normal truncated to [-2, 2] standard deviations, times ``std``.
-
-    Drawn in fp32 by inverting the normal CDF on uniforms from ``generator``
-    (which must live on ``device``), then cast.  The numbers differ from the
-    reference's for the same seed: parity tests carry weights across instead.
-    """
-    lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
-    hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
-    u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32, device=device)
-    u = u.mul_(hi - lo).add_(lo)
-    x = torch.erfinv(u.mul_(2.0).sub_(1.0)).mul_(_SQRT2).clamp_(-2.0, 2.0)
-    return x.mul_(std).to(dtype)
+    """A new tensor drawn by :func:`trunc_normal_`."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    return trunc_normal_(out, generator, std)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +126,48 @@ def apply_rope(
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+#: qwen2-vl's ``mrope_section`` in eighths: temporal, height, width
+MROPE_SECTIONS = (2, 3, 3)
+
+
+def mrope_sin_cos(
+    positions: torch.Tensor,  # (B, S, 3) integer: temporal / height / width
+    head_dim: int,
+    theta: float = 1_000_000.0,
+    sections: Tuple[int, int, int] = MROPE_SECTIONS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sin, cos)`` of multimodal RoPE (qwen2-vl), each ``(B, S, 1, Dh/2)``
+    fp32: the ``Dh/2`` frequencies are cut into three sections by Python's
+    ``round(n * s / total)`` (the last bound forced to ``n``), and each
+    section rotates by its own position stream."""
+    n = head_dim // 2
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections:
+        acc += round(n * s / total)
+        bounds.append(acc)
+    bounds[-1] = n
+    freq = torch.arange(n, device=positions.device)
+    sec_id = (freq >= bounds[0]).long() + (freq >= bounds[1]).long()    # (n,) in {0, 1, 2}
+    pos = positions.float()[..., sec_id]                                 # (B, S, n)
+    angles = pos * rope_frequencies(head_dim, theta, device=positions.device)
+    return torch.sin(angles)[:, :, None, :], torch.cos(angles)[:, :, None, :]
+
+
+def apply_mrope(
+    x: torch.Tensor,          # (B, S, H, Dh)
+    positions: torch.Tensor,  # (B, S, 3) integer
+    theta: float = 1_000_000.0,
+    sections: Tuple[int, int, int] = MROPE_SECTIONS,
+    sin_cos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Multimodal RoPE: the split-half rotation of :func:`apply_rope` with
+    the angles of :func:`mrope_sin_cos` (``sin_cos``, if the caller has them)."""
+    if sin_cos is None:
+        sin_cos = mrope_sin_cos(positions, x.shape[-1], theta, sections)
+    return apply_rope(x, None, sin_cos=sin_cos)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
 from .attention import attention
-from .common import apply_rope, rms_norm, rope_sin_cos, swiglu, trunc_normal
-from .mamba2 import init_mamba_layers, init_states, layer_shapes, run_stack
+from .common import apply_rope, rms_norm, rope_sin_cos, swiglu, trunc_normal_
+from .mamba2 import fill_mamba_layers, init_states, layer_shapes, run_stack
 from .transformer import ModelConfig, _cache_index
 
 Params = Dict[str, Any]
@@ -38,29 +37,23 @@ def shared_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     }
 
 
-def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device: DeviceLike = "cuda"
-) -> Dict[str, torch.Tensor]:
-    """Random parameters as a flat ``name -> tensor`` dict: ``embed``, the
-    ``mamba.*`` stack, one ``shared_attn.*`` set, ``final_ln``; drawn as the
-    reference draws them (truncated normal, std ``1/sqrt(fan_in)``, 0.02 for
-    ``embed``).  ``generator`` must live on ``device``."""
-    device = resolve_device(device)
-    dt = cfg.dtype
-    out: Dict[str, torch.Tensor] = {
-        "embed": trunc_normal(generator, (cfg.vocab, cfg.d_model), 0.02, dt, device),
-    }
-    mamba = init_mamba_layers(generator, cfg.n_layers, cfg.d_model, cfg.ssm_heads,
-                              cfg.ssm_head_dim, cfg.ssm_state, dtype=dt, device=device)
-    out.update({f"mamba.{k}": v for k, v in mamba.items()})
-    for name, shape in shared_shapes(cfg).items():
+def fill_params(
+    cfg: ModelConfig, params: Dict[str, torch.Tensor], generator: torch.Generator
+) -> None:
+    """Draws ``params`` (:func:`param_shapes`' names: ``embed``, the
+    ``mamba.*`` stack, one ``shared_attn.*`` set, ``final_ln``) **in place**
+    from ``generator``, which lives on their device, as the reference draws
+    them (truncated normal, std ``1/sqrt(fan_in)``, 0.02 for ``embed``)."""
+    trunc_normal_(params["embed"], generator, 0.02)
+    fill_mamba_layers({k.split(".", 1)[1]: v for k, v in params.items()
+                       if k.startswith("mamba.")}, generator, cfg.d_model)
+    for name in shared_shapes(cfg):
+        p = params[f"shared_attn.{name}"]
         if name.startswith("ln"):
-            out[f"shared_attn.{name}"] = torch.zeros(shape, dtype=dt, device=device)
+            p.zero_()
         else:
-            std = 1.0 / math.sqrt(shape[0])
-            out[f"shared_attn.{name}"] = trunc_normal(generator, shape, std, dt, device)
-    out["final_ln"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
-    return out
+            trunc_normal_(p, generator, 1.0 / math.sqrt(p.shape[0]))
+    params["final_ln"].zero_()
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

@@ -24,8 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..device import DeviceLike, resolve_device
-from .common import rms_norm, trunc_normal
+from .common import rms_norm, trunc_normal_
 
 D_CONV = 4  # depthwise causal conv width (mamba2 default)
 N_GROUPS = 1
@@ -74,41 +73,27 @@ def leaf_dtype(leaf: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if leaf in FP32_LEAVES else dtype
 
 
-def init_mamba_layers(
-    generator: torch.Generator,
-    n_layers: int,
-    d_model: int,
-    ssm_heads: int,
-    ssm_head_dim: int,
-    d_state: int,
-    dtype: torch.dtype = torch.bfloat16,
-    device: DeviceLike = "cuda",
-) -> Dict[str, torch.Tensor]:
-    """Random parameters of a stack of ``n_layers`` layers (leading axis), as
+def fill_mamba_layers(
+    params: Dict[str, torch.Tensor], generator: torch.Generator, d_model: int
+) -> None:
+    """Draws a stack of layers (:func:`layer_shapes`' names, a leading layer
+    axis) **in place** from ``generator``, which lives on their device, as
     the reference draws each layer: truncated normal projections (std
     ``1/sqrt(fan_in)``), conv std 0.2, ``a_log = log(linspace(1, 16, H))``,
-    ``d_skip`` ones, biases and norm offsets zero.  ``generator`` must live on
-    ``device``."""
-    device = resolve_device(device)
-    H = ssm_heads
-    out: Dict[str, torch.Tensor] = {}
-    for name, shape in layer_shapes(d_model, H, ssm_head_dim, d_state).items():
-        full = (n_layers,) + shape
-        dt = leaf_dtype(name, dtype)
+    ``d_skip`` ones, biases and norm offsets zero."""
+    for name, p in params.items():
         if name == "in_proj":
-            out[name] = trunc_normal(generator, full, 1.0 / math.sqrt(d_model), dt, device)
+            trunc_normal_(p, generator, 1.0 / math.sqrt(d_model))
         elif name == "out_proj":
-            out[name] = trunc_normal(generator, full, 1.0 / math.sqrt(shape[0]), dt, device)
+            trunc_normal_(p, generator, 1.0 / math.sqrt(p.shape[-2]))
         elif name == "conv_w":
-            out[name] = trunc_normal(generator, full, 0.2, dt, device)
+            trunc_normal_(p, generator, 0.2)
         elif name == "a_log":
-            a_log = torch.log(torch.linspace(1.0, 16.0, H, device=device))
-            out[name] = a_log.expand(full).to(dt).clone()
+            p.copy_(torch.log(torch.linspace(1.0, 16.0, p.shape[-1], device=p.device)))
         elif name == "d_skip":
-            out[name] = torch.ones(full, dtype=dt, device=device)
+            p.fill_(1.0)
         else:
-            out[name] = torch.zeros(full, dtype=dt, device=device)
-    return out
+            p.zero_()
 
 
 # ---------------------------------------------------------------------------

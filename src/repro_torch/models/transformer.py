@@ -1,20 +1,24 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer: the dense, MoE and VLM-backbone families.
 
 Counterpart of ``repro.models.transformer`` for stablelm-3b, qwen2-7b,
-granite-8b and gemma3-1b:
+granite-8b, gemma3-1b, qwen2-moe-a2.7b, llama4-scout and the qwen2-vl-2b
+backbone:
 
 * grouped-query attention with optional QKV bias, per-layer sliding-window /
-  chunked masks (gemma3 5:1 local:global), per-layer RoPE theta;
-* dense SwiGLU feed-forward;
+  chunked masks (gemma3 5:1 local:global, llama4 iRoPE), per-layer RoPE
+  theta or none (llama4's global layers), M-RoPE for the VLM;
+* dense SwiGLU or a mixture of experts (:func:`moe_ffn`: shared + routed
+  experts, top-k by a stable sort, capacity-based scatter dispatch; the
+  exact every-expert path for decode-sized inputs);
 * parameters are **layer-stacked** under the reference's key names (``embed``,
-  ``layers.{ln1,ln2,wq,wk,wv,wo,bq,bk,bv,w_gate,w_up,w_down}``, ``final_ln``,
-  ``lm_head``), so a reference checkpoint loads key for key; where the
-  reference scans the stack, :func:`forward` loops over its leading axis;
+  ``layers.{ln1,ln2,wq,wk,wv,wo,bq,bk,bv,w_gate,w_up,w_down}`` or the MoE's
+  ``layers.{router,we_*,ws_*}``, ``final_ln``, ``lm_head``, ``patch_proj``),
+  so a reference checkpoint loads key for key; where the reference scans the
+  stack, :func:`forward` loops over its leading axis;
 * the same functions serve a full forward pass, prefill (fills a KV cache)
   and decode (one token against the cache).
 
-Mixture-of-experts, the vision prefix / M-RoPE, rematerialisation and the
-training loss belong to later slices of the port.
+Rematerialisation and the training loss belong to the training slice.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention
-from .common import apply_rope, rms_norm, rope_sin_cos, swiglu, trunc_normal
+from .common import (
+    apply_mrope, apply_rope, mrope_sin_cos, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
+)
 
 Params = Dict[str, Any]
 
@@ -92,19 +98,6 @@ class ModelConfig:
         return tuple(int((i + 1) % self.global_period == 0) for i in range(self.n_layers))
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (moe_ffn) are not ported yet; "
-            "they come with the MoE slice of the port"
-        )
-    if cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE / patch embeddings are not ported yet; "
-            "they come with the VLM slice of the port"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Parameter shapes + init
 # ---------------------------------------------------------------------------
@@ -112,8 +105,7 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Flat ``name -> shape`` of the layer-stacked parameters (dots separate
-    the levels of the reference's tree)."""
-    _require_dense(cfg)
+    the levels of the reference's tree), in the reference's order."""
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
     Hq, Hkv, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
     shapes: Dict[str, Tuple[int, ...]] = {
@@ -129,32 +121,44 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update({
             "layers.bq": (L, Hq * Dh), "layers.bk": (L, Hkv * Dh), "layers.bv": (L, Hkv * Dh),
         })
-    shapes.update({
-        "layers.w_gate": (L, D, F), "layers.w_up": (L, D, F), "layers.w_down": (L, F, D),
-        "final_ln": (D,),
-    })
+    m = cfg.moe
+    if m is None:
+        shapes.update({"layers.w_gate": (L, D, F), "layers.w_up": (L, D, F),
+                       "layers.w_down": (L, F, D)})
+    else:
+        E, Fe = m.n_experts, m.d_ff_expert
+        shapes.update({"layers.router": (L, D, E), "layers.we_gate": (L, E, D, Fe),
+                       "layers.we_up": (L, E, D, Fe), "layers.we_down": (L, E, Fe, D)})
+        if m.n_shared:
+            Fs = m.d_ff_shared
+            shapes.update({"layers.ws_gate": (L, D, Fs), "layers.ws_up": (L, D, Fs),
+                           "layers.ws_down": (L, Fs, D)})
+            if m.shared_gate:
+                shapes["layers.ws_g"] = (L, D, 1)
+    shapes["final_ln"] = (D,)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, V)
+    if cfg.family == "vlm":
+        shapes["patch_proj"] = (D, D)
     return shapes
 
 
-def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device: DeviceLike = "cuda"
-) -> Dict[str, torch.Tensor]:
-    """Random parameters as a flat ``name -> tensor`` dict (see
-    :func:`param_shapes`): truncated normal with std ``1/sqrt(fan_in)`` for
-    the matrices (0.02 for ``embed``), zeros for norms and biases.
-    ``generator`` must live on ``device``."""
-    device = resolve_device(device)
-    out: Dict[str, torch.Tensor] = {}
-    for name, shape in param_shapes(cfg).items():
+def fill_params(
+    cfg: ModelConfig, params: Dict[str, torch.Tensor], generator: torch.Generator
+) -> None:
+    """Draws ``params`` (:func:`param_shapes`' names) **in place** from
+    ``generator``, which lives on their device: truncated normal with std
+    ``1/sqrt(fan_in)`` for every matrix (0.02 for ``embed``), zeros for norms
+    and biases.  A large leaf is drawn block by block into its own storage
+    (:func:`repro_torch.models.common.trunc_normal_`), so no second copy of
+    the weights is made."""
+    for name, p in params.items():
         leaf = name.rsplit(".", 1)[-1]
         if leaf.startswith(("ln", "b")) or leaf == "final_ln":
-            out[name] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+            p.zero_()
         else:
-            std = 0.02 if leaf == "embed" else 1.0 / math.sqrt(shape[-2])
-            out[name] = trunc_normal(generator, shape, std=std, dtype=cfg.dtype, device=device)
-    return out
+            std = 0.02 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2])
+            trunc_normal_(p, generator, std)
 
 
 def nest(flat: Dict[str, torch.Tensor]) -> Params:
@@ -168,6 +172,99 @@ def nest(flat: Dict[str, torch.Tensor]) -> Params:
             node = node.setdefault(part, {})
         node[leaf] = t
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (capacity-based scatter; the exact path for small T)
+# ---------------------------------------------------------------------------
+
+#: the reference's threshold: inputs of at most this many tokens (decode, short
+#: prompts) take the exact path, longer ones the capacity path
+DENSE_PATH_MAX_TOKENS = 256
+
+
+def route(
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], m: MoEConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router: ``(gate, expert)``, each ``(T, top_k)``, of ``x (T, D)``.
+
+    Softmax of the fp32 router logits, then the ``top_k`` largest by a
+    **stable** descending sort, so that among equal probabilities the lower
+    expert index comes first, as ``jax.lax.top_k`` orders them (``torch.topk``
+    leaves ties in no stated order, and the capacity path drops tokens by
+    this order).  With ``norm_topk`` the gates are divided by their sum
+    (floored at 1e-9)."""
+    probs = torch.softmax((x @ lp["router"]).float(), dim=-1)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[:, :m.top_k], expert[:, :m.top_k]
+    if m.norm_topk:
+        gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return gate, expert
+
+
+def _moe_dense_exact(
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], m: MoEConfig,
+    gate: torch.Tensor, expert: torch.Tensor,
+) -> torch.Tensor:
+    """Exact no-drop MoE for small ``T``: every expert runs on every token and
+    the top-k weights select.  ``O(T·E·D·F)``: decode-sized inputs only.  The
+    products are batched over the experts against the stacked weights as they
+    lie (no copy of a weight)."""
+    h = swiglu(torch.matmul(x, lp["we_gate"]), torch.matmul(x, lp["we_up"]))   # (E, T, F)
+    y_all = torch.bmm(h, lp["we_down"])                                      # (E, T, D)
+    onehot = torch.nn.functional.one_hot(expert, m.n_experts).to(y_all.dtype)  # (T, k, E)
+    w = (onehot * gate[..., None].to(y_all.dtype)).sum(dim=1)                 # (T, E)
+    return torch.einsum("etd,te->td", y_all, w)
+
+
+def moe_ffn(
+    x: torch.Tensor,
+    lp: Dict[str, torch.Tensor],
+    m: MoEConfig,
+    dense_path_max_tokens: int = DENSE_PATH_MAX_TOKENS,
+) -> torch.Tensor:
+    """``x (T, D) -> (T, D)``.  Sort-based position assignment and a scatter
+    into an ``(E, C, D)`` expert buffer; an assignment past an expert's
+    capacity ``C`` goes to a drop bucket and contributes 0.  Inputs of at most
+    ``dense_path_max_tokens`` tokens take the exact path.  The shapes depend
+    on ``T`` alone, so nothing here reads a value back to the host."""
+    T, D = x.shape
+    E, k = m.n_experts, m.top_k
+    C = max(1, int(math.ceil(T * k / E * m.capacity_factor)))
+    gate, expert = route(x, lp, m)
+
+    if T <= dense_path_max_tokens:
+        y = _moe_dense_exact(x, lp, m, gate, expert)
+    else:
+        flat_e = expert.reshape(-1)                                   # (T*k,)
+        # position of each assignment within its expert, via a stable sort
+        perm = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[perm]
+        idx = torch.arange(T * k, device=x.device)
+        is_start = torch.ones_like(sorted_e, dtype=torch.bool)
+        is_start[1:] = sorted_e[1:] != sorted_e[:-1]
+        group_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+        pos = (idx - group_start)[torch.argsort(perm, stable=True)]
+        keep = pos < C
+        dest = torch.where(keep, flat_e * C + pos, E * C)             # drop bucket at E*C
+        # each kept assignment has a slot of its own; only the drop bucket,
+        # which is cut off below, receives more than one
+        buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+        buf.index_add_(0, dest, x.repeat_interleave(k, dim=0))
+        xe = buf[:E * C].view(E, C, D)
+        h = swiglu(torch.bmm(xe, lp["we_gate"]), torch.bmm(xe, lp["we_up"]))
+        ye = torch.cat([torch.bmm(h, lp["we_down"]).reshape(E * C, D),
+                        torch.zeros((1, D), dtype=x.dtype, device=x.device)])
+        y = ye[dest] * gate.reshape(-1, 1).to(ye.dtype) * keep[:, None]
+        y = y.reshape(T, k, D).sum(dim=1)
+
+    if m.n_shared:
+        ys = swiglu(x @ lp["ws_gate"], x @ lp["ws_up"]) @ lp["ws_down"]
+        if m.shared_gate:
+            # the gate's sigmoid in fp32, rounded to the model's dtype before the product
+            ys = ys * torch.sigmoid((x @ lp["ws_g"]).float()).to(ys.dtype)
+        y = y + ys
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +291,17 @@ def _qkv(
     )
 
 
-RopeTables = Dict[float, Tuple[torch.Tensor, torch.Tensor]]
+RopeTables = Dict[Any, Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> RopeTables:
-    """sin / cos for each theta the layers use, once per forward pass."""
+def _rope_tables(
+    cfg: ModelConfig, positions: torch.Tensor, mrope_positions: Optional[torch.Tensor] = None
+) -> RopeTables:
+    """sin / cos for each theta the layers use, once per forward pass; under
+    M-RoPE (``cfg.mrope`` and ``(B, S, 3)`` positions given) the one table
+    every layer uses, under the key ``"mrope"``."""
+    if cfg.mrope and mrope_positions is not None:
+        return {"mrope": mrope_sin_cos(mrope_positions, cfg.dh, cfg.rope_theta)}
     thetas = {cfg.rope_theta}
     if cfg.local_rope_theta is not None:
         thetas.add(cfg.local_rope_theta)
@@ -207,15 +310,20 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor) -> RopeTables:
 
 def _rope(
     cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, kind: int,
-    tables: Optional[RopeTables] = None,
+    tables: Optional[RopeTables] = None, mrope_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``kind`` is a Python int here (the reference traces it and selects)."""
+    """``kind`` is a Python int here (the reference traces it and selects).
+    M-RoPE, where it applies, goes before the local-theta and NoPE rules."""
+    tables = tables or {}
+    if cfg.mrope and mrope_positions is not None:
+        return apply_mrope(x, mrope_positions, cfg.rope_theta, sin_cos=tables.get("mrope"))
     theta = cfg.rope_theta
-    if cfg.local_rope_theta is not None and kind == 0:
-        theta = cfg.local_rope_theta      # gemma3: local layers use the local theta
+    if cfg.local_rope_theta is not None:
+        if kind == 0:
+            theta = cfg.local_rope_theta  # gemma3: local layers use the local theta
     elif cfg.nope_on_global and kind > 0:
-        return x
-    return apply_rope(x, positions, theta, sin_cos=tables.get(theta) if tables else None)
+        return x                          # llama4: no RoPE on global layers
+    return apply_rope(x, positions, theta, sin_cos=tables.get(theta))
 
 
 def _mask_params(cfg: ModelConfig, kind: int) -> Tuple[int, int]:
@@ -236,6 +344,7 @@ def block(
     cache_positions: Optional[torch.Tensor] = None,
     rope_tables: Optional[RopeTables] = None,
     cache_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mrope_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One pre-norm transformer block; returns the new hidden states.
 
@@ -247,8 +356,8 @@ def block(
     """
     x = rms_norm(h, lp["ln1"])
     q, k, v = _qkv(x, lp, cfg)
-    q = _rope(cfg, q, positions, kind, rope_tables)
-    k = _rope(cfg, k, positions, kind, rope_tables)
+    q = _rope(cfg, q, positions, kind, rope_tables, mrope_positions)
+    k = _rope(cfg, k, positions, kind, rope_tables, mrope_positions)
 
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -270,7 +379,10 @@ def block(
     h = h + (o.reshape(B, S, -1) @ lp["wo"]).to(h.dtype)
 
     x = rms_norm(h, lp["ln2"])
-    y = swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
+    if cfg.moe is None:
+        y = swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
+    else:
+        y = moe_ffn(x.reshape(-1, cfg.d_model), lp, cfg.moe).reshape(x.shape)
     return h + y.to(h.dtype)
 
 
@@ -291,17 +403,27 @@ def forward(
     attn_impl: str = "chunked",
     kv_caches: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (L,B,Skv,Hkv,Dh) x2
     cache_positions: Optional[torch.Tensor] = None,
+    patch_embeds: Optional[torch.Tensor] = None,     # (B, P, D): vlm only
+    mrope_positions: Optional[torch.Tensor] = None,  # (B, S, 3): vlm only
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (final hidden states (B,S,D), the KV caches or None).
+
+    For the vlm family, ``patch_embeds`` (precomputed by the vision frontend,
+    a stub as in the reference) are projected by ``patch_proj`` and replace
+    the first ``P`` token embeddings; ``mrope_positions`` give every layer
+    M-RoPE in place of RoPE.
 
     The caches are written **in place** and handed back for the reference's
     calling convention.  The reference's insert clamps a write that would run
     past the cache's end (``dynamic_update_slice``); this raises ``ValueError``
     instead.
     """
-    _require_dense(cfg)
     B, S = tokens.shape
     h = params["embed"][tokens].to(cfg.dtype)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        P = patch_embeds.shape[1]
+        proj = (patch_embeds.to(cfg.dtype) @ params["patch_proj"]).to(cfg.dtype)
+        h = torch.cat([proj, h[:, P:]], dim=1)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     if kv_caches is not None:
@@ -315,7 +437,7 @@ def forward(
             )
 
     # the same for every layer: computed once
-    rope_tables = _rope_tables(cfg, positions)
+    rope_tables = _rope_tables(cfg, positions, mrope_positions)
     cache_index = None if kv_caches is None else _cache_index(positions)
 
     layers = params["layers"]
@@ -324,7 +446,8 @@ def forward(
         cache = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
         h = block(cfg, h, lp, kind, positions, attn_impl,
                   kv_cache=cache, cache_positions=cache_positions,
-                  rope_tables=rope_tables, cache_index=cache_index)
+                  rope_tables=rope_tables, cache_index=cache_index,
+                  mrope_positions=mrope_positions)
 
     h = rms_norm(h, params["final_ln"])
     return h, kv_caches

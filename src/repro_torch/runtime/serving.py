@@ -62,6 +62,8 @@ class Server:
     key names (``Model.state_dict()`` or :func:`repro_torch.convert.params_from_reference`);
     its tensors are adopted, not copied, when they already lie on ``device``
     in the dtype the model declares for them (:func:`repro_torch.models.param_dtypes`).
+    The model is built without storage of its own (``storage="meta"``), so
+    the weights are never held twice.
     Attention goes through ``attn_impl`` and the SSD scan of the ssm and
     hybrid families through ``ssd_impl``: the CUDA kernels by default, which
     on CPU tensors are their plain versions."""
@@ -71,7 +73,8 @@ class Server:
         device: DeviceLike = "cuda", attn_impl: str = "hopper", ssd_impl: str = "hopper",
     ):
         self.device = resolve_device(device)
-        self.model = Model(model_cfg, attn_impl=attn_impl, ssd_impl=ssd_impl, device=self.device)
+        self.model = Model(model_cfg, attn_impl=attn_impl, ssd_impl=ssd_impl, device=self.device,
+                           storage="meta")
         dtypes = param_dtypes(model_cfg)
         adopted = {
             name: t.detach().to(device=self.device, dtype=dtypes.get(name, model_cfg.dtype))
@@ -203,7 +206,8 @@ class Server:
     #   ssm:  (L, B, H, P, N)               -> batch axis 1
     #   conv: (L, B, D_CONV-1, conv_dim)    -> batch axis 1
     #   pos:  (B,)                          -> batch axis 0
-    # (enc keeps the reference's axis for the family to come)
+    # (the dense, moe and vlm families hold kv and pos; enc keeps the
+    # reference's axis for the family to come)
     _BATCH_AXIS = {"kv": 1, "ssm": 1, "conv": 1, "pos": 0, "enc": 0}
 
     @classmethod

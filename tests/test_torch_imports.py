@@ -35,7 +35,8 @@ def test_every_module_is_found():
                  "repro_torch.configs.granite_8b", "repro_torch.configs.gemma3_1b",
                  "repro_torch.kernels.mamba2_ssd", "repro_torch.models.mamba2",
                  "repro_torch.models.hybrid", "repro_torch.configs.mamba2_370m",
-                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.configs.zamba2_2_7b", "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.qwen2_vl_2b",
                  "repro_torch.runtime.serving", "repro_torch.convert", "repro_torch.device"):
         assert name in MODULES, name
 
@@ -97,7 +98,6 @@ def test_entry_points_default_to_the_gpu_and_never_fall_back():
         lambda: Server(cfg, scfg, state),
         lambda: Server(cfg, scfg, state, device="cuda"),
         lambda: transformer.init_kv_cache(cfg, 1, 8),
-        lambda: transformer.init_params(cfg, torch.Generator()),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA device"):

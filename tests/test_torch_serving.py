@@ -5,8 +5,8 @@ go through both servers with the same float32 weights (made with numpy from a
 seed and carried across), for the dense family and for the ssm and hybrid
 families (reduced mamba2_370m and zamba2_2_7b, through both kernels' paths).
 Per-step logits must agree within 1e-4, and the greedy tokens must be equal
-wherever the reference's top-2 margin exceeds that tolerance (below it, either
-choice is right and the runs may part).
+wherever the reference's top-2 margin exceeds twice the two runs' difference
+at that step (below it, either choice is right and the runs may part).
 """
 
 import dataclasses
@@ -88,15 +88,18 @@ def _requests(cls):
     return [cls(uid=i, prompt=np.arange(1, 5 + i, dtype=np.int32)) for i in range(5)]
 
 
-def _compare_runs(calls, jcalls, done, jdone):
-    """Logits step for step while the two runs are fed the same tokens."""
+def _compare_runs(calls, jcalls, done, jdone, tol=TOL):
+    """Logits step for step while the two runs are fed the same tokens: each
+    step within ``tol``; the greedy choices equal unless the reference's top-2
+    margin is within twice the step's largest difference (a near tie, where
+    they may part and the comparison stops)."""
     assert [k for k, _ in calls] == [k for k, _ in jcalls]
     compared = 0
     for (kind, got), (_, want) in zip(calls, jcalls):
-        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL, err_msg=f"{kind} #{compared}")
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol, err_msg=f"{kind} #{compared}")
         compared += 1
         top2 = np.sort(want, axis=-1)[:, -2:]
-        if float((top2[:, 1] - top2[:, 0]).min()) <= 2 * TOL:
+        if float((top2[:, 1] - top2[:, 0]).min()) <= 2 * float(np.abs(got - want).max()):
             return compared, False    # a near tie: the greedy choices may part here
         assert (got.argmax(-1) == want.argmax(-1)).all()
     assert [c.tokens for c in done] == [c.tokens for c in jdone]
