@@ -6,8 +6,8 @@
 
 It imports ``repro_torch`` only, builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (one process a source, all
-started together), and drives the port's six serving paths through the entry
-points a user calls.  Each phase prints one JSON line:
+started together), and drives the port's ten serving paths and its training
+path through the entry points a user calls.  Each phase prints one JSON line:
 
 1. ``device``            card name and power limit (``nvidia-smi``), torch / CUDA / nvcc versions
 2. ``build``             build seconds, the ``.so``, per-kernel registers / spills / shared
@@ -41,7 +41,23 @@ points a user calls.  Each phase prints one JSON line:
 10. ``serve_llama4``     the same on llama4_scout_17b_a16e at full width and 4 of its 48
                          layers (one global period; 48 are 200.7 GiB), then one 8,448-token
                          prompt across the 8,192-token attention chunk and 4 decode steps
-11. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
+11. ``serve_gemma3``,   ``Server.serve`` on full-width gemma3_1b (26 layers, heads of 256,
+    ``serve_qwen2_7b``,  a 512-token window on 5 of 6 layers), qwen2_7b (28 layers, GQA 7)
+    ``serve_granite``    and granite_8b (36 layers, GQA 4), as ``serve``, each with the
+                         float32 check at full depth
+12. ``serve_whisper``    whisper_large_v3 at full width and depth (32 + 32 layers, heads of
+                         64): 8 slots of 1,500 seeded frame embeddings through
+                         ``Model.prefill`` (the encoder, on the kernel's mma path), then 32
+                         greedy ``decode_step``s (self- and cross-attention, both on the
+                         split path); launches, logits against ``attn_impl="chunked"``, the
+                         float32 check at 2 layers
+13. ``train``            ``Trainer`` on the card, no kernel (the kernels are forward only):
+                         (a) stablelm_3b at full width and depth, 8 steps at 8 x 512 tokens,
+                         the loss must fall; (b) at full width and 2 layers, a run with a
+                         failure injected at step 5 restarts from its step-4 checkpoint and
+                         must end bit for bit where an uninterrupted run ends; (c) float32
+                         gradients through ``"chunked"`` against ``"xla"`` within 1e-4
+14. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
                          the serving paths, error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
@@ -50,7 +66,7 @@ points a user calls.  Each phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-12. ``serve_throughput`` per model: tokens/s and completion latencies, with the card
+15. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after, prints its initialisation and serving peaks of device memory
@@ -59,11 +75,11 @@ one is made: one full-width model on the card at a time.  The MoE and VLM
 paths hold the kernel path's logits against ``attn_impl="chunked"`` within
 the larger of 1e-1 and twice the spread of ``"xla"`` against ``"chunked"``,
 report the share of tokens routed to other experts, and hold the same weights
-in float32 within 1e-3 (qwen2_moe at 2 of its layers).  ``--phases
-serve,...,serve_llama4,profile`` adds a ``torch.profiler`` pass over a few
-decode steps and a 512-token prefill of each served model, taken while it is
-on the card (device time by kernel, device busy share); it is not part of the
-default run.  The ``run`` line gives the wall time of the whole run.
+in float32 within 1e-3 (qwen2_moe at 2 of its layers, whisper at 2).
+``--phases serve,...,serve_whisper,profile`` adds a ``torch.profiler`` pass over
+a few decode steps and a 512-token prefill of each served model (whisper: the
+prefill of its 8 x 1,500 frames), taken while it is on the card (device time
+by kernel, device busy share); it is not part of the default run.  The ``run`` line gives the wall time of the whole run.
 
 Any failed phase ends the run with a non-zero exit code; there is no CPU
 fallback.  The last line is ``{"ok": true, "device": {...}}``.
@@ -95,10 +111,10 @@ from repro_torch.models import Model, transformer  # noqa: E402
 from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
-           "serve_llama4"]
-PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "kernels",
+           "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
+PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train", "kernels",
           "serve_throughput"]
-EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,...,serve_llama4,profile
+EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,...,serve_whisper,profile
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
@@ -359,10 +375,11 @@ def phase_build(ctx):
          kernels=len(res), max_registers=max(r["registers"] for r in res),
          spill_bytes=sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in res),
          by_kernel=by_kernel, attention_by_path=by_path, ssd_by_path=ssd_by_path, resources=res)
-    # the new paths keep their state in registers at the main paths' head widths
-    spilled = [r["kernel"] for r in res if r.get("dh_class") in (80, 128)
+    # the mma and split paths keep their state in registers at every head width
+    # class (64: whisper, 80: stablelm / zamba2, 128, 256: gemma3)
+    spilled = [r["kernel"] for r in res if r.get("dh_class") in (64, 80, 128, 256)
                and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
-    require(not spilled, f"spills at Dh = 80 / 128: {spilled}")
+    require(not spilled, f"spills at Dh = 64 / 80 / 128 / 256: {spilled}")
     # the SSD mma path keeps h in registers at the main paths' state widths
     spilled = [r["kernel"] for r in res if r.get("ssd_path") == "mma" and r["state"] in (64, 128)
                and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
@@ -372,9 +389,9 @@ def phase_build(ctx):
             and r["registers"] > ssd.REGISTERS[(r["ssd_path"], r["state"], r["p_block"])]]
     require(not over, f"SSD kernels hold more registers than mamba2_ssd.REGISTERS: {over}")
     # fma: fp32 only, 4 head-width classes x 4 tiles; mma: 4 x 2 KV tiles;
-    # split: 4 x 4 row classes
+    # split: 4 x 4 row classes, less the 16-row class at Dh 256
     require((by_path["fma"]["instantiations"], by_path["mma"]["instantiations"],
-             by_path["split"]["instantiations"]) == (16, 8, 16),
+             by_path["split"]["instantiations"]) == (16, 8, 15),
             f"the build's instantiations by path: {[len(v['registers']) for v in by_path.values()]}")
     # the chooser's shared-memory formulas are the kernel's own
     lib = _build.load()
@@ -497,6 +514,37 @@ def phase_kernel_vs_plain(ctx):
     check_case("chunk 8192, an 8,448-token prompt, 40/8",
                make_case(1, 8448, 8448, 40, 8, 128, bf16, q_positions=np.arange(8448)[None]),
                bf16, failures, results, want_path="mma", chunk_attn=8192, oracle_kv_heads=1)
+    # whisper's heads (20 of 64): the encoder's self-attention over 1,500 frames,
+    # every query seeing every frame (position T), on mma; a decode step's
+    # self-attention in a 448-slot cache and its cross-attention over the
+    # frames, on split.  gemma3's heads (4 / 1 of 256) with its 512-token
+    # window: a prefill on mma, a decode step (4 rows) on split
+    T = 1500
+    for dtype in both:
+        bf = dtype == bf16
+        check_case("whisper encoder, all frames", make_case(2, T, T, 20, 20, 64, dtype,
+                                                            q_positions=np.full((2, T), T)),
+                   dtype, failures, results, want_path="mma" if bf else "fma", oracle_kv_heads=2)
+        check_case("whisper decode self", make_case(8, 1, 448, 20, 20, 64, dtype,
+                                                    q_positions=np.arange(8)[:, None] * 7),
+                   dtype, failures, results, want_path="split" if bf else "fma")
+        check_case("whisper decode cross", make_case(8, 1, T, 20, 20, 64, dtype,
+                                                     q_positions=np.full((8, 1), T)),
+                   dtype, failures, results, want_path="split" if bf else "fma")
+        check_case("gemma3 prefill, window 512", make_case(1, 544, 1024, 4, 1, 256, dtype,
+                                                           q_positions=np.arange(544)[None]),
+                   dtype, failures, results, want_path="mma" if bf else "fma", window=512)
+        check_case("gemma3 decode, window 512",
+                   make_case(8, 1, 1024, 4, 1, 256, dtype,
+                             q_positions=serve_lengths()[:, None] - 1),
+                   dtype, failures, results, want_path="split" if bf else "fma", window=512)
+    # at Dh 256 the split path's widest class is 8 rows; 9-16 rows go to mma
+    check_case("Dh 256, 8 rows", make_case(2, 2, 700, 16, 4, 256, bf16,
+                                           q_positions=[[300, 690], [5, 6]]),
+               bf16, failures, results, want_path="split", window=333)
+    check_case("Dh 256, 16 rows", make_case(2, 4, 700, 16, 4, 256, bf16,
+                                            q_positions=[[100, 300, 500, 690], [5, 6, 7, 8]]),
+               bf16, failures, results, want_path="mma", window=333)
     # every key masked (query positions before the first key): the mean of the v rows
     for dtype in both:
         check_case("all keys masked", make_case(1, 5, 70, 2, 2, 64, dtype,
@@ -1012,6 +1060,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
                 f"{cfg.name}: MoE paths {moe_paths} for {long_prompts} prompts over 256 tokens")
     snap = server.metrics_snapshot()
     ctx.setdefault("snapshots", {})[cfg.name] = snap
+    ctx.setdefault("served", []).append(cfg.name)
 
     # what the phase adds, then the logit checks on every prompt
     prompts = [("first request", {"tokens": torch.from_numpy(requests[0].prompt[None]).to(dev)},
@@ -1254,6 +1303,351 @@ def phase_serve_llama4(ctx):
                ATTN_WHY, ATTN_SPREAD, cuts=LLAMA4_CUTS, extra=long_prompt)
 
 
+#: whisper_large_v3's decode: 8 slots of 1,500 frames (30 s), 32 greedy steps
+#: from position 0 into a 448-slot cache (the decoder's maximum position),
+#: starting from token 50258 (Whisper's start of transcript); the logit
+#: checks over the prefill and 4 steps, the float32 one at 2 of 32 layers
+WHISPER = dict(slots=8, frames=1500, steps=32, max_len=448, start=50258, check_steps=4,
+               fp32_layers=2, seed=0)
+WHISPER_WHY = ("bf16 through 32 + 32 layers: the kernel and attention_chunked round each "
+               "attention output on their own; 1e-1 as in serve, or twice the spread of "
+               "attention 'xla' against 'chunked' (the same function, other roundings) where "
+               "that is larger")
+
+
+def whisper_frames(cfg):
+    """The 8 slots' frame embeddings (the frontend stub's output): seeded,
+    bf16, on the card."""
+    rng = np.random.default_rng(WHISPER["seed"])
+    x = rng.standard_normal((WHISPER["slots"], WHISPER["frames"], cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(x).to(DEVICE).to(cfg.dtype)
+
+
+def whisper_decode(model, frames, steps, tokens=None, step_ms=None):
+    """``Model.prefill`` of ``frames`` (the prompt's tokens give only the batch
+    size, as in the reference), then ``steps`` decode steps from position 0,
+    fed ``tokens[i]`` where given, else greedy from the start token.  Returns
+    (encoder output, [float32 logits of each step], [tokens fed]); with
+    ``step_ms`` each step's wall time is appended, the prefill's first."""
+    B = frames.shape[0]
+    t = time.perf_counter()
+    enc, state = model.prefill({"tokens": torch.zeros((B, 1), dtype=torch.int64, device=DEVICE),
+                                "frame_embeds": frames}, WHISPER["max_len"])
+    if step_ms is not None:
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    tok = torch.full((B, 1), WHISPER["start"], dtype=torch.int64, device=DEVICE)
+    logits, fed = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        tok = tokens[i] if tokens is not None else tok
+        fed.append(tok)
+        h, state = model.decode_step(tok, state)
+        out = model.logits(h[:, -1:])[:, 0].float()
+        tok = out.argmax(-1, keepdim=True)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        logits.append(out)
+    return enc, logits, fed
+
+
+def whisper_agreement(got, want, tol):
+    """Largest error of the encoder output and of each step's logits, and
+    whether each step picks the same tokens."""
+    enc_err, ok_enc = compare(got[0], want[0], tol)
+    errs = [compare(g, w, tol) for g, w in zip(got[1], want[1])]
+    return {"encoder_err": enc_err, "logits_err": max(e for e, _ in errs),
+            "logits_err_by_step": [e for e, _ in errs],
+            "argmax_agrees": [bool((g.argmax(-1) == w.argmax(-1)).all())
+                              for g, w in zip(got[1], want[1])],
+            "within": ok_enc and all(ok for _, ok in errs)}
+
+
+def whisper_checks(model, frames):
+    """The kernel path (``attn_impl="hopper"``: all three attentions) against
+    ``"chunked"`` over the prefill and the first decode steps, both fed the
+    chunked path's greedy tokens: in bf16 within max(1e-1, twice the spread
+    of ``"xla"`` against ``"chunked"``); the same weights in float32 at 2
+    layers within 1e-3 with the same tokens."""
+    n = WHISPER["check_steps"]
+
+    def run(m, impl, tokens=None, x=frames):
+        m.attn_impl = impl
+        try:
+            return whisper_decode(m, x, n, tokens)
+        finally:
+            m.attn_impl = "hopper"
+
+    plain = run(model, "chunked")
+    spread = whisper_agreement(run(model, "xla", plain[2]), plain, 0.0)
+    tol = max(1e-1, 2 * max(spread["encoder_err"], spread["logits_err"]))
+    checks = {"plain_vs_itself": {"changed": {"attn_impl": "xla"}, **spread},
+              "bfloat16": {"tolerance": tol, **whisper_agreement(run(model, "hopper", plain[2]),
+                                                                 plain, tol)}}
+    del plain
+    L = WHISPER["fp32_layers"]
+    cfg32 = dataclasses.replace(model.cfg, dtype=torch.float32, n_layers=L)
+    model32 = Model(cfg32, attn_impl="hopper", device=DEVICE)
+    model32.load_state_dict({k: v[:L] if k.startswith(("enc.", "dec.")) else v
+                             for k, v in model.state_dict().items()})
+    x32 = frames.float()
+    plain32 = run(model32, "chunked", x=x32)
+    checks["float32"] = {"tolerance": 1e-3, "layers": L,
+                         **whisper_agreement(run(model32, "hopper", plain32[2], x32), plain32,
+                                             1e-3)}
+    del model32, plain32
+    torch.cuda.empty_cache()
+    return checks
+
+
+def phase_serve_whisper(ctx):
+    """whisper_large_v3 at full width and depth through ``Model.prefill`` /
+    ``decode_step`` (the reference's ``Server`` cannot take frames): every
+    attention through the kernel, counted by path; then the logit checks."""
+    cfg = get_config("whisper_large_v3")
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, attn_impl="hopper", device=DEVICE).init(seed=WHISPER["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    w_gb = weights_gb(model)
+    require(init_peak_gb <= w_gb + 4.0, f"{cfg.name}: initialisation peak "
+            f"{init_peak_gb:.2f} GiB over {w_gb:.2f} GiB of weights")
+    frames = whisper_frames(cfg)
+    whisper_decode(model, frames[:1], 2)     # warm-up outside the measured run
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    reset_counts()                  # the path starts here
+    enc, logits, fed = whisper_decode(model, frames, WHISPER["steps"], step_ms=step_ms)
+    torch.cuda.synchronize()
+    launches = read_counts()        # ... and ends here
+    paths = dict(fa.flash_attention.launches_by_path)
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    ctx.setdefault("launches", {})["serve_whisper"] = launches
+    ctx.setdefault("attention_paths", {})["serve_whisper"] = paths
+    L, n = cfg.n_layers, WHISPER["steps"]
+    # the encoder: one self-attention a layer (mma); a decode step: one
+    # self-attention and one cross-attention a decoder layer (split)
+    want = {"flash_attention": L + n * 2 * L, "mamba2_ssd": 0}
+    want_paths = {"fma": 0, "mma": L, "split": n * 2 * L}
+    require(launches == want and paths == want_paths,
+            f"{cfg.name}: launches {launches} by path {paths}, expected {want} by path "
+            f"{want_paths}: an attention call went around its kernel")
+    stacked = torch.stack(logits)
+    require(bool(torch.isfinite(stacked).all()) and bool(torch.isfinite(enc.float()).all()),
+            "whisper: non-finite encoder output or logits")
+    tokens = torch.cat(fed[1:] + [stacked[-1].argmax(-1, keepdim=True)], dim=1)
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "a token outside the vocabulary")
+    require(enc.shape == (WHISPER["slots"], WHISPER["frames"], cfg.d_model), "encoder output shape")
+    checks = whisper_checks(model, frames)
+    decode_ms = step_ms[1:]
+    decode_s = sum(decode_ms) / 1e3
+    emit("serve_whisper", model=cfg.name, family=cfg.family, layers=[L, L], d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.dh, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, cuts={}, dtype="bfloat16", params=sum(p.numel() for p in model.parameters()),
+         weights_gb=round(w_gb, 3), init_seconds=round(init_s, 3),
+         init_peak_gb=round(init_peak_gb, 3), slots=WHISPER["slots"], frames=WHISPER["frames"],
+         decode_steps=n, max_len=WHISPER["max_len"], kernel_launches=launches,
+         expected_launches=want, attention_launches_by_path=paths,
+         prefill_ms=round(step_ms[0], 3), decode_step_ms_mean=round(float(np.mean(decode_ms)), 3),
+         decode_step_ms_p50=round(float(np.median(decode_ms)), 3),
+         decode_step_ms_min=round(float(np.min(decode_ms)), 3),
+         decode_step_ms_all=[round(t, 1) for t in decode_ms],
+         tokens_per_s_decode=WHISPER["slots"] * n / decode_s,
+         tokens_per_s=WHISPER["slots"] * n / (decode_s + step_ms[0] / 1e3),
+         peak_memory_gb=round(peak_gb, 3), compared_with={"attn_impl": "chunked"},
+         logits_max_abs=float(stacked.abs().max()),
+         logits_err=checks["bfloat16"]["logits_err"],
+         encoder_err=checks["bfloat16"]["encoder_err"],
+         tolerance=checks["bfloat16"]["tolerance"], tolerance_reason=WHISPER_WHY, checks=checks,
+         card=ctx.get("card"), first_tokens=[int(t) for t in tokens[0, :8]])
+    require(checks["bfloat16"]["within"],
+            f"{cfg.name}: kernel path and plain path disagree on the logits")
+    require(checks["float32"]["within"] and all(checks["float32"]["argmax_agrees"]),
+            f"{cfg.name}: kernel path and plain path disagree on the float32 logits")
+    ctx.setdefault("served", []).append(cfg.name)
+    if ctx.get("profile"):
+        profile_whisper(ctx, model, frames)
+    del model, enc, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the training phase: stablelm_3b, 8 steps of 8 x 512 tokens
+TRAIN = dict(arch="stablelm_3b", seq_len=512, global_batch=8, data_seed=7, steps=8,
+             restart_layers=2, checkpoint_every=4, fail_at=5, check_layers=2)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_train(ctx):
+    """``Trainer`` on the card.  No kernel runs: the CUDA kernels are
+    forward only (their wrappers raise under grad), so training goes
+    through ``attention_chunked`` in PyTorch; the launch counts must stay 0.
+    (a) full width and depth, remat "full", no checkpoint: the loss must
+    fall; (b) full width, 2 of 32 layers (a 32-layer checkpoint with float32
+    moments is about 28 GB): a run that fails at step 5 and restarts from
+    its step-4 checkpoint must end with the uninterrupted run's loss and
+    parameters and moments, bit for bit; (c) float32 at 2 layers: the
+    gradients through "chunked" against "xla" within 1e-4 of their norm."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN["arch"])
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN["steps"])
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                      global_batch=TRAIN["global_batch"], seed=TRAIN["data_seed"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {"arch": cfg.name, "card": ctx.get("card"),
+           "kernel": "none: the CUDA kernels are forward only; training runs attention_chunked "
+                     "in PyTorch (cuBLAS products)",
+           "data": dataclasses.asdict(data), "optimizer": dataclasses.asdict(opt)}
+    try:
+        # (a) full width and depth
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tr = Trainer(cfg, opt, TrainConfig(steps=TRAIN["steps"], checkpoint_every=0,
+                                           checkpoint_dir=os.path.join(tmp, "a"), remat="full",
+                                           attn_impl="chunked"), data, device=DEVICE)
+        t0 = time.perf_counter()
+        run = tr.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+                f"train: a forward-only kernel was launched: {launches}")
+        losses = run["losses"]
+        state_gb = sum(t.numel() * t.element_size() for part in (run["params"],
+                       run["opt_state"]["mu"], run["opt_state"]["nu"]) for t in part.values())
+        steady = run["step_seconds"][1:]
+        out["full"] = {
+            "layers": cfg.n_layers, "params": sum(p.numel() for p in run["params"].values()),
+            "remat": "full", "attn_impl": "chunked", "steps": len(losses), "seconds": seconds,
+            "step_ms": [round(t * 1e3, 3) for t in run["step_seconds"]],
+            "step_ms_p50_after_first": float(np.median(steady)) * 1e3,
+            "tokens_per_s": TRAIN["seq_len"] * TRAIN["global_batch"] / float(np.median(steady)),
+            "losses": losses, "params_and_moments_gb": state_gb / 2**30,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "kernel_launches": launches}
+        require(len(losses) == TRAIN["steps"] and all(np.isfinite(losses)), "train: losses")
+        require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+        del tr, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) restart, bit for bit
+        cfg2 = dataclasses.replace(cfg, n_layers=TRAIN["restart_layers"])
+        runs, ckpt_bytes = {}, {}
+        for name in ("uninterrupted", "interrupted"):
+            armed = {"on": name == "interrupted"}
+
+            def injector(step, armed=armed):
+                if step == TRAIN["fail_at"] and armed["on"]:
+                    armed["on"] = False
+                    raise RuntimeError("injected node failure")
+
+            # one checkpoint kept (about 4 GB), each run's removed after it
+            tr = Trainer(cfg2, opt, TrainConfig(steps=TRAIN["steps"],
+                                                checkpoint_every=TRAIN["checkpoint_every"],
+                                                checkpoint_dir=os.path.join(tmp, name),
+                                                keep_checkpoints=1, remat="full",
+                                                attn_impl="chunked"),
+                         data, device=DEVICE)
+            runs[name] = tr.run(fault_injector=injector)
+            ckpt_bytes[name] = dir_bytes(tr.ckpt._path(tr.ckpt.latest_step()))
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+            del tr
+        a, b = runs["uninterrupted"], runs["interrupted"]
+        params_equal = all(torch.equal(p, b["params"][k]) for k, p in a["params"].items())
+        moments_equal = all(torch.equal(m, b["opt_state"][part][k]) for part in ("mu", "nu")
+                            for k, m in a["opt_state"][part].items())
+        out["restart"] = {"layers": cfg2.n_layers, "steps": TRAIN["steps"],
+                          "checkpoint_every": TRAIN["checkpoint_every"],
+                          "fail_at": TRAIN["fail_at"], "restarts": b["restarts"],
+                          "resumed_from_step": TRAIN["fail_at"] + TRAIN["steps"]
+                          - len(b["losses"]),
+                          "losses_uninterrupted": a["losses"], "losses_interrupted": b["losses"],
+                          "final_loss_equal": a["losses"][-1] == b["losses"][-1],
+                          "params_bit_equal": params_equal, "moments_bit_equal": moments_equal,
+                          "checkpoint_bytes": ckpt_bytes["uninterrupted"]}
+        require(a["restarts"] == 0 and b["restarts"] == 1, "train: restarts")
+        # steps 0 .. fail_at - 1, then every step from the last checkpoint on, again
+        resumed = TRAIN["fail_at"] // TRAIN["checkpoint_every"] * TRAIN["checkpoint_every"]
+        require(len(b["losses"]) == TRAIN["fail_at"] + TRAIN["steps"] - resumed,
+                f"train: the restarted run did not resume from step {resumed}")
+        require(a["losses"][-1] == b["losses"][-1] and params_equal and moments_equal,
+                "train: the restarted run does not end where the uninterrupted run ends")
+        del runs, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) float32: gradients through "chunked" against "xla"
+        cfg32 = dataclasses.replace(cfg, n_layers=TRAIN["check_layers"], dtype=torch.float32)
+        model = Model(cfg32, device=DEVICE).init(seed=0)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in SyntheticLM(data).batch(0).items()}
+        grads, loss = {}, {}
+        for impl in ("chunked", "xla"):
+            model.attn_impl = impl
+            value = model.train_loss(batch)
+            grads[impl] = dict(zip([k for k, _ in model.named_parameters()],
+                                   torch.autograd.grad(value, list(model.parameters()))))
+            loss[impl] = float(value.detach())
+        norm = float(global_norm(grads["xla"]))
+        err = max(float((grads["chunked"][k] - g).abs().max()) for k, g in grads["xla"].items())
+        out["float32"] = {"layers": cfg32.n_layers, "loss_chunked": loss["chunked"],
+                          "loss_xla": loss["xla"], "grad_norm": norm, "grad_err": err,
+                          "grad_err_relative": err / norm, "tolerance": 1e-4}
+        require(abs(loss["chunked"] - loss["xla"]) <= 1e-5 * max(1.0, abs(loss["xla"]))
+                and err <= 1e-4 * norm, f"train: float32 chunked against xla: {out['float32']}")
+        del model, grads
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train", **out)
+
+
+DENSE_WHY = ("bf16 through every layer: the kernel and attention_chunked round each layer's "
+             "attention output on their own; 1e-1 as in serve, or twice the spread of attention "
+             "'xla' against 'chunked' (the same function, other roundings) where that is larger")
+
+
+def phase_serve_gemma3(ctx):
+    """gemma3_1b at full width and depth: heads of 256, a 512-token window on
+    its local layers (the prompts of 64-512 tokens and 32 new ones cross it)."""
+    serve_path(ctx, "serve_gemma3", "gemma3_1b",
+               attention_launches(get_config("gemma3_1b").n_layers),
+               {"attn_impl": "chunked"}, 1e-1, DENSE_WHY, ATTN_SPREAD)
+
+
+def phase_serve_qwen2_7b(ctx):
+    """qwen2_7b at full width and depth (GQA 7, QKV bias)."""
+    serve_path(ctx, "serve_qwen2_7b", "qwen2_7b",
+               attention_launches(get_config("qwen2_7b").n_layers),
+               {"attn_impl": "chunked"}, 1e-1, DENSE_WHY, ATTN_SPREAD)
+
+
+def phase_serve_granite(ctx):
+    """granite_8b at full width and depth (GQA 4)."""
+    serve_path(ctx, "serve_granite", "granite_8b",
+               attention_launches(get_config("granite_8b").n_layers),
+               {"attn_impl": "chunked"}, 1e-1, DENSE_WHY, ATTN_SPREAD)
+
+
 def time_ms(fn, warmup=3, iters=20):
     for _ in range(warmup):
         fn()
@@ -1373,7 +1767,7 @@ def library_times(qt, kt, vt, mask, math=True):
 #: from position 0), and a 4,096-token causal prompt, whose grid (2,048 mma
 #: blocks) fills the card many times over where the serving shapes' 256 blocks
 #: are one wave; then the heads of 128 of qwen2_moe (16/16) and qwen2_vl (12/2)
-#: at their serving shapes
+#: at their serving shapes, and whisper's three attentions (20 heads of 64)
 ATTN_TIMED = {
     "decode": ((8, 1, 1024, 32, 32, 80), "full"),
     "prefill": ((1, 512, 1024, 32, 32, 80), "end"),
@@ -1383,9 +1777,16 @@ ATTN_TIMED = {
     "qwen2_moe_decode": ((8, 1, 1024, 16, 16, 128), "serve"),
     "qwen2_moe_prefill": ((1, 512, 1024, 16, 16, 128), "prompt"),
     "qwen2_vl_decode": ((8, 1, 1024, 12, 2, 128), "serve"),
+    "whisper_encoder": ((8, 1500, 1500, 20, 20, 64), "all"),
+    "whisper_decode_self": ((8, 1, 448, 20, 20, 64), "whisper"),
+    "whisper_decode_cross": ((8, 1, 1500, 20, 20, 64), "all"),
 }
 QUERY_POSITIONS = {"full": "the last of a full cache", "end": "the last of a full cache",
-                   "serve": "what Server.serve sends", "prompt": "a prompt from position 0"}
+                   "serve": "what Server.serve sends", "prompt": "a prompt from position 0",
+                   "all": "position Skv: every query sees every key (whisper's encoder and "
+                          "cross-attention)",
+                   "whisper": "position 16 of a 448-slot cache (the middle of serve_whisper's "
+                              "32 decode steps)"}
 
 
 def phase_kernels(ctx):
@@ -1399,6 +1800,10 @@ def phase_kernels(ctx):
                                    device=q.device)
         elif where == "prompt":  # a prompt from position 0
             qpos = torch.arange(shape[1], dtype=torch.int32, device=q.device)[None]
+        elif where == "all":     # every query sees every key
+            qpos = torch.full((shape[0], shape[1]), shape[2], dtype=torch.int32, device=q.device)
+        elif where == "whisper":  # a decode step in the middle of serve_whisper's 32
+            qpos = torch.full((shape[0], 1), 16, dtype=torch.int32, device=q.device)
         plan = fa.choose_tile(shape[1], shape[2], shape[5], dtype=q.dtype,
                               groups=shape[3] // shape[4], batch_kv_heads=shape[0] * shape[4])
         got = ops.flash_attention(q, k, v, qpos, kpos)
@@ -1635,10 +2040,45 @@ def profile_server(ctx, server):
          decode=dec, prefill_512={"prompts": 3, **pre})
 
 
+def profile_whisper(ctx, model, frames):
+    """``profile_server`` for whisper: decode steps of the 8 slots after the
+    prefill of their frames, and the prefill (the encoder over 8 x 1,500
+    frames) itself."""
+    cfg = model.cfg
+    batch = {"tokens": torch.zeros((frames.shape[0], 1), dtype=torch.int64, device=DEVICE),
+             "frame_embeds": frames}
+    _, state = model.prefill(batch, WHISPER["max_len"])
+    step = torch.full((frames.shape[0], 1), WHISPER["start"], dtype=torch.int64, device=DEVICE)
+
+    def decode():
+        nonlocal state
+        h, state = model.decode_step(step, state)
+        model.logits(h).argmax(-1).cpu()
+
+    for _ in range(3):
+        decode()
+    torch.cuda.synchronize()
+    dec = _device_profile(decode, 5)
+
+    def prefill():
+        enc, _ = model.prefill(batch, WHISPER["max_len"])
+        enc.sum().item()
+
+    prefill()
+    torch.cuda.synchronize()
+    pre = _device_profile(prefill, 3)
+    ctx.setdefault("profiled", []).append(cfg.name)
+    emit("profile", model=cfg.name, layers=[cfg.n_layers, cfg.n_layers], card=ctx.get("card"),
+         batch=frames.shape[0], decode_steps=5, wall_ms_per_step=dec["wall_ms"],
+         device_ms_per_step=dec["device_ms"], device_busy_share=dec["device_busy_share"],
+         device_kernels_per_step=dec["device_kernels"], top=dec["top"], decode=dec,
+         prefill_frames={"frames": WHISPER["frames"], "repeats": 3, **pre})
+
+
 def phase_profile(ctx):
     """The serving phases profiled their models while each was on the card
     (one full-width model at a time): every served model must have been."""
-    served = sorted(ctx.get("snapshots", {}))
+    served = sorted(ctx.get("served", []))
     require(served, "profile needs a serving phase")
     require(sorted(ctx.get("profiled", [])) == served,
             f"profiled {ctx.get('profiled')}, served {served}")

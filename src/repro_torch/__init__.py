@@ -6,9 +6,11 @@ finds the other side of a module (``repro_torch/kernels/ops.py`` <->
 nothing of ``repro``.  Every entry point runs on the GPU unless the caller
 asks for the CPU (``device="cpu"``); with no CUDA device the default raises.
 
-Ported so far: the dense serving path (``runtime.Server`` -> ``models.Model``
--> ``models.transformer`` -> ``models.attention`` -> ``kernels.ops`` -> the
-hand-written CUDA attention kernel in ``kernels/csrc/flash_attention.cu``).
+Ported so far: every family's serving path (``runtime.Server`` ->
+``models.Model`` -> ``models.transformer`` / ``mamba2`` / ``hybrid`` /
+``encdec`` -> ``kernels.ops`` -> the hand-written CUDA kernels in
+``kernels/csrc/``), and training on one device (``runtime.Trainer``,
+``optim``, ``checkpoint``, ``data``).
 """
 
 from .device import resolve_device

@@ -1,0 +1,3 @@
+from .manager import CheckpointManager, restore_tree, save_tree
+
+__all__ = ["CheckpointManager", "restore_tree", "save_tree"]

@@ -25,6 +25,7 @@ ARCH_IDS = [
     "qwen2_moe_a2_7b",
     "llama4_scout_17b_a16e",
     "qwen2_vl_2b",
+    "whisper_large_v3",
     "mamba2_370m",
     "zamba2_2_7b",
 ]
@@ -52,15 +53,17 @@ def all_configs() -> Dict[str, ModelConfig]:
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameter count by the reference's formula, for the ported families.
+    """Parameter count by the reference's formula, for every family.
 
     Exact for the dense, moe and vlm families but for the final norm (and
     the vlm's ``patch_proj``).  For ``ssm`` and ``hybrid`` the reference also
     leaves out a mamba layer's ``conv_b`` and its three per-head vectors
     (``a_log``, ``d_skip``, ``dt_bias``), and the hybrid's two shared-block
-    norms; the port keeps the formula so that the two counts stay equal."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(f"param_count: family {cfg.family!r} is not ported yet")
+    norms; for ``audio`` every norm (``ln1``, ``ln2``, ``lnx``, ``enc_ln``,
+    ``final_ln``).  The port keeps the formula so that the two counts stay
+    equal."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"param_count: unknown family {cfg.family!r}")
     D, L, V, F = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.d_ff
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     total = V * D  # embed
@@ -78,6 +81,10 @@ def param_count(cfg: ModelConfig) -> int:
             if m.n_shared:
                 per += 3 * D * m.d_ff_shared + (D if m.shared_gate else 0)
         return total + L * per
+    if cfg.family == "audio":   # encoder and decoder stacks, frame_proj, tied head
+        per_enc = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
+        per_dec = per_enc + D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
+        return total + L * (per_enc + per_dec) + D * D
     d_inner, conv_dim = mamba_dims(D, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
     proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
     total += L * (D * proj + 4 * conv_dim + d_inner * D + d_inner + D)

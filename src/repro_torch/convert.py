@@ -98,11 +98,15 @@ def state_from_reference(
     """The reference's decode state (numpy leaves) as the port's: ``kv`` a
     pair of ``(L or apps, B, S, Hkv, Dh)`` arrays in ``kv_dtype``, ``ssm``
     ``(L, B, H, P, N)`` float32, ``conv`` ``(L, B, D_CONV-1, conv_dim)``
-    bfloat16, ``pos`` ``(B,)`` int32; whichever of them the family has."""
+    bfloat16, the audio family's encoder output ``enc`` ``(B, T, D)`` in
+    ``kv_dtype`` (its caches' and its own dtype are both ``cfg.dtype``), ``pos``
+    ``(B,)`` int32; whichever of them the family has."""
     device = resolve_device(device)
     out: Dict[str, Any] = {}
     if "kv" in state:
         out["kv"] = tuple(_from_numpy(x, device, kv_dtype) for x in state["kv"])
+    if "enc" in state:
+        out["enc"] = _from_numpy(state["enc"], device, kv_dtype)
     for key, dt in _STATE_DTYPES.items():
         if key in state:
             out[key] = _from_numpy(state[key], device, dt)

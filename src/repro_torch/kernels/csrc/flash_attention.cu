@@ -52,7 +52,8 @@
 // operand of P V.  m / l / acc never leave the registers: the placement of
 // loop-carried state that this repository is about.
 //
-// Path "split" (bf16 inputs, decode: Sq * (Hq/Hkv) <= 16 rows).  Bound by the
+// Path "split" (bf16 inputs, decode: Sq * (Hq/Hkv) <= 16 rows, 8 above Dh = 128,
+// where 16 rows' accumulators, 128 floats a lane, would spill).  Bound by the
 // bytes of K and V.  grid (splits, B*Hkv): one block serves every query head of
 // a kv head (GQA by rows), so each K/V row is read once per (batch, kv head).
 // The wrapper picks the fewest splits that fill one wave of resident blocks
@@ -88,7 +89,8 @@ constexpr int kMmaStages = 2;       // K / V tiles in the copy ring
 constexpr int kSplitThreads = 128;  // four warps
 constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kSplitKeys = 32;      // keys of one warp's tile: one a lane
-constexpr int kMaxRows = 16;        // query rows a split block serves
+constexpr int kMaxRows = 16;        // query rows a split block serves ...
+constexpr int kMaxRowsWide = 8;     // ... above Dh = 128
 constexpr int kPad = 8;             // bf16 elements of padding a shared row
 
 // stages of a split warp's copy ring: two up to Dh = 128; one above, where two
@@ -1190,7 +1192,7 @@ int launch_mma(const Params& p, int bkv, cudaStream_t stream) {
 template <int DHC>
 int launch_split(const Params& p, cudaStream_t stream) {
   const int rows = (p.Hq / p.Hkv) * p.Sq;
-  if (rows > kMaxRows || p.splits < 1) return -2;
+  if (rows > (DHC > 128 ? kMaxRowsWide : kMaxRows) || p.splits < 1) return -2;
   if (p.splits > 1 && (p.ws == nullptr || p.tickets == nullptr)) return -4;
   const dim3 grid(p.splits, p.B * p.Hkv);
   const int rc = rows <= 1 ? 1 : rows <= 4 ? 4 : rows <= 8 ? 8 : 16;
@@ -1199,8 +1201,11 @@ int launch_split(const Params& p, cudaStream_t stream) {
     case 1: return (int)launch_kernel(flash_attention_split_kernel<DHC, 1>, grid, kSplitThreads, smem, p, stream);
     case 4: return (int)launch_kernel(flash_attention_split_kernel<DHC, 4>, grid, kSplitThreads, smem, p, stream);
     case 8: return (int)launch_kernel(flash_attention_split_kernel<DHC, 8>, grid, kSplitThreads, smem, p, stream);
-    default: return (int)launch_kernel(flash_attention_split_kernel<DHC, 16>, grid, kSplitThreads, smem, p, stream);
   }
+  // the 16-row class only up to Dh = 128: wider, the wrapper sends 9-16 rows to mma
+  if constexpr (DHC <= 128)
+    return (int)launch_kernel(flash_attention_split_kernel<DHC, 16>, grid, kSplitThreads, smem, p, stream);
+  return -2;
 }
 
 enum Path { kFma = 0, kMma = 1, kSplit = 2 };

@@ -25,7 +25,7 @@ about it).  Here:
 
 Which path serves which call: ``fma`` every float32 call (plain FMAs, no TF32);
 ``split`` bfloat16 calls whose query rows per kv head (``Sq * Hq / Hkv``) are at
-most 16 — decode; ``mma`` the other bfloat16 calls — prefill.
+most 16 (8 above Dh = 128) — decode; ``mma`` the other bfloat16 calls — prefill.
 """
 
 from __future__ import annotations
@@ -69,6 +69,8 @@ MMA_STAGES = 2
 #: the split path: 32-key warp tiles, at most 16 query rows a block, in row classes
 SPLIT_KEYS = 32
 SPLIT_ROWS = (1, 4, 8, 16)
+#: above Dh = 128 at most 8: 16 rows' accumulators (128 floats a lane) would spill
+SPLIT_ROWS_WIDE = 8
 _PAD = 8  # bf16 elements of padding a shared-memory row
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -181,11 +183,17 @@ def _snap(wanted: int, tiles: Tuple[int, ...]) -> int:
     return tiles[-1]
 
 
-def _row_class(rows: int) -> int:
+def split_rows(head_dim: int) -> int:
+    """The most query rows a split block serves at ``head_dim``."""
+    return SPLIT_ROWS[-1] if head_dim <= 128 else SPLIT_ROWS_WIDE
+
+
+def _row_class(rows: int, head_dim: int) -> int:
     for rc in SPLIT_ROWS:
-        if rows <= rc:
+        if rows <= min(rc, split_rows(head_dim)):
             return rc
-    raise ValueError(f"the split path serves at most {SPLIT_ROWS[-1]} query rows, got {rows}")
+    raise ValueError(f"the split path serves at most {split_rows(head_dim)} query rows at "
+                     f"head width {head_dim}, got {rows}")
 
 
 def default_splits(seq_kv: int, batch_kv_heads: int, smem: int) -> int:
@@ -199,12 +207,12 @@ def default_splits(seq_kv: int, batch_kv_heads: int, smem: int) -> int:
     return max(1, min(resident // max(1, batch_kv_heads), tiles // (SPLIT_THREADS // 32)))
 
 
-def choose_path(seq_q: int, dtype: torch.dtype, groups: int = 1) -> str:
-    """fp32 -> ``fma``; bf16 with at most 16 query rows a kv head -> ``split``;
-    other bf16 -> ``mma``."""
+def choose_path(seq_q: int, head_dim: int, dtype: torch.dtype, groups: int = 1) -> str:
+    """fp32 -> ``fma``; bf16 with at most :func:`split_rows` query rows a kv
+    head -> ``split``; other bf16 -> ``mma``."""
     if dtype != torch.bfloat16:
         return "fma"
-    return "split" if seq_q * groups <= SPLIT_ROWS[-1] else "mma"
+    return "split" if seq_q * groups <= split_rows(head_dim) else "mma"
 
 
 def choose_tile(
@@ -218,8 +226,8 @@ def choose_tile(
 
     The path follows :func:`choose_path` unless ``path`` names one (the plain
     version's arithmetic; ``mma`` and ``split`` take bf16 only, ``split`` at
-    most 16 rows a kv head).  fma: a short query (decode) takes the 16-row
-    tile, anything longer the 64-row one; mma: 64 rows, 64-key tiles (32
+    most :func:`split_rows` rows a kv head).  fma: a short query (decode)
+    takes the 16-row tile, anything longer the 64-row one; mma: 64 rows, 64-key tiles (32
     above Dh = 128), two stages; split: the row class of ``seq_q * groups``,
     32-key warp tiles in :func:`split_stages` stages, ``default_splits``
     blocks a (batch, kv head) unless ``splits`` is given.  ``block_q`` /
@@ -230,7 +238,7 @@ def choose_tile(
     the result is always launchable.
     """
     _check_head_dim(head_dim)
-    path = path or choose_path(seq_q, dtype, groups)
+    path = path or choose_path(seq_q, head_dim, dtype, groups)
     if path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     if path != "fma" and dtype != torch.bfloat16:
@@ -256,7 +264,7 @@ def choose_tile(
         plan = Plan("mma", MMA_BQ, bkv, MMA_STAGES, 1, MMA_THREADS)
         assert mma_accumulator_registers(head_dim, bkv) < MAX_REGISTERS
     else:
-        rc = _row_class(seq_q * groups)
+        rc = _row_class(seq_q * groups, head_dim)
         smem = split_smem_bytes(head_dim, rc, seq_kv)
         n = default_splits(seq_kv, batch_kv_heads, smem) if splits is None else int(splits)
         if n < 1:

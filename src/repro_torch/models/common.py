@@ -8,15 +8,17 @@ the stacked leading axis in Python, so there is no ``scan`` here.
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..kernels.ref import NEG_INF, floor_div
 
 __all__ = [
-    "NEG_INF", "trunc_normal", "trunc_normal_", "rms_norm", "rope_frequencies", "rope_sin_cos",
-    "apply_rope", "mrope_sin_cos", "apply_mrope", "swiglu", "causal_mask_bias",
+    "NEG_INF", "trunc_normal", "trunc_normal_", "rms_norm", "layer_norm", "rope_frequencies",
+    "rope_sin_cos", "apply_rope", "mrope_sin_cos", "apply_mrope", "swiglu", "gelu",
+    "causal_mask_bias", "REMATS", "check_remat", "remat_call",
 ]
 
 # ---------------------------------------------------------------------------
@@ -88,6 +90,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Layer norm in fp32 with a plain scale and bias (no model calls it: the
+    whisper backbone keeps RMSNorm, as the reference does)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +192,37 @@ def apply_mrope(
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(gate) * up
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU by its tanh approximation, as the reference's ``approximate=True``."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+#: the reference's remat options; ``dots`` and ``full`` both recompute the
+#: whole layer body in backward here (``torch.utils.checkpoint`` has no
+#: policy that keeps only the products)
+REMATS = ("none", "dots", "full")
+
+
+def check_remat(remat: str) -> str:
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r}: one of {REMATS}")
+    return remat
+
+
+def remat_call(fn: Callable, remat: str, *args, **kwargs):
+    """``fn(*args, **kwargs)``; under ``remat`` ``dots`` / ``full`` with
+    gradients on, through ``torch.utils.checkpoint``, so that backward
+    recomputes the body instead of keeping its activations (where the
+    reference wraps its scan body in ``jax.checkpoint``)."""
+    if check_remat(remat) == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 # ---------------------------------------------------------------------------

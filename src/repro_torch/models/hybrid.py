@@ -10,15 +10,19 @@ the stacked leading axis.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .attention import attention
-from .common import apply_rope, rms_norm, rope_sin_cos, swiglu, trunc_normal_
+from .common import (
+    apply_rope, check_remat, remat_call, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
+)
 from .mamba2 import fill_mamba_layers, init_states, layer_shapes, run_stack
-from .transformer import ModelConfig, _cache_index
+from .transformer import ModelConfig, _cache_index, check_cache_room, lm_loss
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -116,45 +120,57 @@ def forward(
     ssm_states: Optional[torch.Tensor] = None,   # (L, B, H, P, N)
     conv_states: Optional[torch.Tensor] = None,  # (L, B, D_CONV-1, conv_dim)
     decode: bool = False,
+    remat: str = "none",
 ) -> Tuple[torch.Tensor, State]:
     """Returns (final hidden states, ``{"kv", "ssm", "conv"}``).
 
     Groups of ``attn_period`` mamba layers, each followed by one application
     of the shared block, then the tail layers when ``n_layers % attn_period``.
-    The states and caches passed in are updated **in place** and handed back;
-    without them, fresh zeroed states are made and returned (prefill).  As in
-    the dense path, a KV insert past the cache's end raises ``ValueError``
-    where the reference clamps.
+    The states and caches passed in are updated **in place** and handed back
+    (a prefill passes zeroed ones from :func:`init_states`).  Without
+    ``ssm_states`` no state is kept and the returned ones are ``None``: the
+    reference makes and returns fresh zeroed states there, which training
+    drops.  As in the dense path, a KV insert past the cache's end raises
+    ``ValueError`` where the reference clamps.  ``remat`` ``dots`` / ``full``
+    recompute each group of mamba layers and its shared-block application in
+    backward, as the reference checkpoints its group body (the tail layers,
+    as there, are not).
     """
+    check_remat(remat)
     B, S = tokens.shape
-    h = params["embed"][tokens].to(cfg.dtype)
+    h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    if ssm_states is None:
-        ssm_states, conv_states = init_states(cfg, B, tokens.device)
     period = cfg.attn_period or (cfg.n_layers + 1)
     apps = n_attn_applications(cfg)
     if kv_caches is not None:
-        max_len = kv_caches[0].shape[2]
-        first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
-        if first < 0 or last + S > max_len:
-            raise ValueError(
-                f"KV cache of length {max_len} cannot take {S} token(s) starting at "
-                f"positions {first}..{last}"
-            )
+        check_cache_room(positions, S, kv_caches[0].shape[2])
     # the same for every application: computed once
     rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta) if apps else None
     cache_index = None if kv_caches is None else _cache_index(positions)
 
     layers = params["mamba"]
-    for app in range(apps):
+
+    def group(h, app):
         h = run_stack(cfg, layers, h, range(app * period, (app + 1) * period),
                       ssm_states, conv_states, decode, ssd_impl)
         cache = None if kv_caches is None else (kv_caches[0][app], kv_caches[1][app])
-        h = _shared_attn_block(cfg, params["shared_attn"], h, positions, attn_impl,
-                               kv_cache=cache, cache_positions=cache_positions,
-                               rope=rope, cache_index=cache_index)
+        return _shared_attn_block(cfg, params["shared_attn"], h, positions, attn_impl,
+                                  kv_cache=cache, cache_positions=cache_positions,
+                                  rope=rope, cache_index=cache_index)
+
+    for app in range(apps):
+        h = remat_call(group, remat, h, app)
     h = run_stack(cfg, layers, h, range(apps * period, cfg.n_layers),
                   ssm_states, conv_states, decode, ssd_impl)
     h = rms_norm(h, params["final_ln"])
     return h, {"kv": kv_caches, "ssm": ssm_states, "conv": conv_states}
+
+
+def lm_head_loss(
+    cfg: ModelConfig, params: Params, h: torch.Tensor, targets: torch.Tensor, chunk: int = 512
+) -> torch.Tensor:
+    """The chunked cross-entropy of :func:`repro_torch.models.transformer.lm_loss`
+    through the tied head (``embed.T``): zamba2 ties its embedding."""
+    tied = dataclasses.replace(cfg, tie_embeddings=True)
+    return lm_loss(tied, {"embed": params["embed"]}, h, targets, chunk=chunk)

@@ -300,14 +300,15 @@ def run_stack(
     layers: Dict[str, torch.Tensor],
     h: torch.Tensor,
     layer_ids: range,
-    ssm_states: torch.Tensor,
-    conv_states: torch.Tensor,
+    ssm_states: Optional[torch.Tensor],
+    conv_states: Optional[torch.Tensor],
     decode: bool,
     ssd_impl: str,
 ) -> torch.Tensor:
     """The mamba layers ``layer_ids`` of the stack in order; writes each
     layer's new states into ``ssm_states[i]`` / ``conv_states[i]`` **in place**
-    (a prompt too short for a conv state leaves that layer's as it was)."""
+    (a prompt too short for a conv state leaves that layer's as it was).
+    ``ssm_states`` ``None`` (training) keeps no state."""
     for i in layer_ids:
         lp = {name: w[i] for name, w in layers.items()}
         h, new_ssm, new_conv = mamba_layer(
@@ -316,6 +317,8 @@ def run_stack(
             conv_state=conv_states[i] if decode else None,
             decode=decode, ssd_impl=ssd_impl,
         )
+        if ssm_states is None:
+            continue
         ssm_states[i] = new_ssm
         if new_conv is not None:
             conv_states[i] = new_conv

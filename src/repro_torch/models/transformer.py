@@ -15,10 +15,9 @@ backbone:
   ``layers.{router,we_*,ws_*}``, ``final_ln``, ``lm_head``, ``patch_proj``),
   so a reference checkpoint loads key for key; where the reference scans the
   stack, :func:`forward` loops over its leading axis;
-* the same functions serve a full forward pass, prefill (fills a KV cache)
-  and decode (one token against the cache).
-
-Rematerialisation and the training loss belong to the training slice.
+* the same functions serve a full forward pass, prefill (fills a KV cache),
+  decode (one token against the cache) and training (``remat`` recomputes
+  each layer in backward; :func:`lm_loss` is the chunked cross-entropy).
 """
 
 from __future__ import annotations
@@ -28,11 +27,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention
 from .common import (
-    apply_mrope, apply_rope, mrope_sin_cos, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
+    apply_mrope, apply_rope, check_remat, mrope_sin_cos, remat_call, rms_norm, rope_sin_cos,
+    swiglu, trunc_normal_,
 )
 
 Params = Dict[str, Any]
@@ -395,6 +397,19 @@ def _cache_index(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return rows, cols
 
 
+def check_cache_room(positions: torch.Tensor, S: int, max_len: int) -> None:
+    """Raises ``ValueError`` unless ``S`` tokens starting at every
+    ``positions[:, 0]`` fit a cache of ``max_len`` (the reference's
+    ``dynamic_update_slice`` would clamp the start and overwrite the tail).
+    One host read a call."""
+    first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
+    if first < 0 or last + S > max_len:
+        raise ValueError(
+            f"KV cache of length {max_len} cannot take {S} token(s) starting at "
+            f"positions {first}..{last}"
+        )
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
@@ -405,6 +420,7 @@ def forward(
     cache_positions: Optional[torch.Tensor] = None,
     patch_embeds: Optional[torch.Tensor] = None,     # (B, P, D): vlm only
     mrope_positions: Optional[torch.Tensor] = None,  # (B, S, 3): vlm only
+    remat: str = "none",                             # none | dots | full
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (final hidden states (B,S,D), the KV caches or None).
 
@@ -417,9 +433,15 @@ def forward(
     calling convention.  The reference's insert clamps a write that would run
     past the cache's end (``dynamic_update_slice``); this raises ``ValueError``
     instead.
+
+    ``remat`` ``dots`` / ``full`` recompute each block in backward
+    (:func:`repro_torch.models.common.remat_call`).  The embedding is looked
+    up by ``F.embedding``, whose backward on CUDA is deterministic (an
+    indexing's would add rows with atomics).
     """
+    check_remat(remat)
     B, S = tokens.shape
-    h = params["embed"][tokens].to(cfg.dtype)
+    h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
         P = patch_embeds.shape[1]
         proj = (patch_embeds.to(cfg.dtype) @ params["patch_proj"]).to(cfg.dtype)
@@ -427,14 +449,7 @@ def forward(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     if kv_caches is not None:
-        max_len = kv_caches[0].shape[2]
-        # one host read a call: the bounds of the insert
-        first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
-        if first < 0 or last + S > max_len:
-            raise ValueError(
-                f"KV cache of length {max_len} cannot take {S} token(s) starting at "
-                f"positions {first}..{last}"
-            )
+        check_cache_room(positions, S, kv_caches[0].shape[2])
 
     # the same for every layer: computed once
     rope_tables = _rope_tables(cfg, positions, mrope_positions)
@@ -444,10 +459,10 @@ def forward(
     for i, kind in enumerate(cfg.layer_kinds()):
         lp = {name: w[i] for name, w in layers.items()}
         cache = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
-        h = block(cfg, h, lp, kind, positions, attn_impl,
-                  kv_cache=cache, cache_positions=cache_positions,
-                  rope_tables=rope_tables, cache_index=cache_index,
-                  mrope_positions=mrope_positions)
+        h = remat_call(block, remat, cfg, h, lp, kind, positions, attn_impl,
+                       kv_cache=cache, cache_positions=cache_positions,
+                       rope_tables=rope_tables, cache_index=cache_index,
+                       mrope_positions=mrope_positions)
 
     h = rms_norm(h, params["final_ln"])
     return h, kv_caches
@@ -456,6 +471,47 @@ def forward(
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
+
+
+def _chunk_nll(cfg: ModelConfig, params: Params, h: torch.Tensor,
+               targets: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk: fp32 logits of
+    ``h (B, c, D)``, targets ``< 0`` left out."""
+    logits = lm_head(cfg, params, h).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                           ignore_index=-1, reduction="sum")
+
+
+def lm_loss(
+    cfg: ModelConfig,
+    params: Params,
+    h: torch.Tensor,        # (B, S, D) final hidden
+    targets: torch.Tensor,  # (B, S) integer; < 0 is not counted
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Chunked cross-entropy: the ``(B, S, V)`` logits are never built.
+
+    The sequence is cut into chunks of ``chunk`` positions; each chunk's
+    logits (in fp32) live only inside its step, and the step goes through
+    ``torch.utils.checkpoint``: without it, backward would keep every
+    chunk's ``(B, c, V)`` logits, which is the whole logits tensor the
+    chunking exists to avoid.  Returns the mean over the counted targets
+    (the count floored at 1).  ``F.cross_entropy`` gives ``logsumexp - gold``
+    as the reference writes it, with a backward that writes each gradient
+    once (a gather's backward would add with atomics on CUDA)."""
+    B, S, _ = h.shape
+    targets = targets.long()
+    targets = torch.where(targets >= 0, targets, torch.full_like(targets, -1))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        hh, tt = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            total = total + torch.utils.checkpoint.checkpoint(
+                _chunk_nll, cfg, params, hh, tt, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(cfg, params, hh, tt)
+    count = (targets >= 0).sum()
+    return total / count.clamp_min(1)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,10 @@ def test_every_module_is_found():
                  "repro_torch.models.hybrid", "repro_torch.configs.mamba2_370m",
                  "repro_torch.configs.zamba2_2_7b", "repro_torch.configs.qwen2_moe_a2_7b",
                  "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.qwen2_vl_2b",
-                 "repro_torch.runtime.serving", "repro_torch.convert", "repro_torch.device"):
+                 "repro_torch.runtime.serving", "repro_torch.convert", "repro_torch.device",
+                 "repro_torch.models.encdec", "repro_torch.configs.whisper_large_v3",
+                 "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer"):
         assert name in MODULES, name
 
 

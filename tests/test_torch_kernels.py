@@ -277,7 +277,7 @@ def test_choose_tile_always_launchable(head_dim):
                 bf = fa.choose_tile(sq, skv, head_dim, dtype=torch.bfloat16, groups=groups,
                                     batch_kv_heads=8)
                 _launchable(bf, head_dim, skv)
-                assert bf.path == ("split" if sq * groups <= 16 else "mma")
+                assert bf.path == ("split" if sq * groups <= fa.split_rows(head_dim) else "mma")
 
 
 def test_choose_tile_honours_overrides_and_budget():
@@ -310,7 +310,7 @@ def test_choose_tile_honours_overrides_and_budget():
             assert tight.bkv * tight.stages <= full.bkv * full.stages
             assert fa.plan_smem_bytes(tight, 128, 4096) <= budget
     with pytest.raises(ValueError):
-        fa.choose_tile(1, 4096, 256, groups=16, smem_budget=64 * 1024, **bf)
+        fa.choose_tile(1, 4096, 256, groups=8, smem_budget=64 * 1024, **bf)
 
 
 def test_chooser_picks_the_path():
@@ -323,6 +323,9 @@ def test_chooser_picks_the_path():
     assert fa.choose_tile(3, 1024, 128, dtype=bf, groups=8).path == "mma"
     assert fa.choose_tile(17, 1024, 80, dtype=bf).path == "mma"
     assert fa.choose_tile(512, 1024, 80, dtype=bf).path == "mma"
+    # above Dh = 128 the split path serves at most 8 rows: 9-16 go to mma
+    assert fa.choose_tile(2, 1024, 256, dtype=bf, groups=4).path == "split"
+    assert fa.choose_tile(4, 1024, 256, dtype=bf, groups=4).path == "mma"
     assert fa.choose_tile(1, 1024, 80).path == "fma"
     assert fa.choose_tile(512, 1024, 80, dtype=torch.float32).path == "fma"
     assert fa.choose_tile(1, 1024, 80, dtype=bf, path="mma").path == "mma"
@@ -331,6 +334,8 @@ def test_chooser_picks_the_path():
         fa.choose_tile(1, 1024, 80, path="split")          # fp32
     with pytest.raises(ValueError):
         fa.choose_tile(17, 1024, 80, dtype=bf, path="split")  # 17 rows
+    with pytest.raises(ValueError):
+        fa.choose_tile(3, 1024, 256, dtype=bf, groups=4, path="split")  # 12 rows at Dh 256
     with pytest.raises(ValueError):
         fa.choose_tile(1, 1024, 80, dtype=bf, path="wgmma")
     with pytest.raises(ValueError):
@@ -417,21 +422,6 @@ ptxas info    : Used 255 registers, 128 bytes smem, 572 bytes cmem[0]
     assert recs[0]["spill_store_bytes"] == 0 and recs[0]["static_smem_bytes"] == 0
     assert (recs[1]["stack_bytes"], recs[1]["spill_store_bytes"], recs[1]["spill_load_bytes"],
             recs[1]["static_smem_bytes"]) == (24, 16, 8, 128)
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain_on_the_card():
-    """Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the full sweep."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the CUDA kernel has no interpret mode")
-    arrs = _inputs(2, 37, 300, 4, 2, 80)
-    tq = tuple(t.cuda() for t in _to_torch(arrs, F32))
-    before = fa.flash_attention.launches
-    got = ops.flash_attention(*tq)
-    torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
-    want = fa.flash_attention_plain(*tq)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=2e-5, rtol=2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -576,19 +566,3 @@ def test_bf16_paths_match_reference(case):
     elif qpos is not None:
         qp = np.full_like(qp, qpos)
     _check_all((q, k, v, qp, kp), BF16, window=window, chunk=chunk, pallas=False)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("path,sq,groups", [("mma", 100, 1), ("split", 1, 4)])
-def test_cuda_bf16_path_matches_plain_on_the_card(path, sq, groups):
-    """Needs a CUDA device and nvcc; ``python3 chip_smoke.py`` runs the full sweep."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the CUDA kernel has no interpret mode")
-    arrs = _inputs(2, sq, 300, 2 * groups, 2, 80)
-    tq = tuple(t.cuda() for t in _to_torch(arrs, BF16))
-    before = dict(fa.flash_attention.launches_by_path)
-    got = ops.flash_attention(*tq)
-    torch.cuda.synchronize()
-    assert fa.flash_attention.launches_by_path[path] == before[path] + 1
-    want = fa.flash_attention_plain(*tq)
-    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), atol=2e-2, rtol=2e-2)

@@ -391,7 +391,9 @@ def test_hybrid_groups_and_tail_layers():
     model = Model(tcfg, device="cpu")
     model.load_state_dict(convert.params_from_reference(tree, tcfg, device="cpu"))
     toks = _tokens(tcfg, 2, 10)
-    got, state = hybrid.forward(tcfg, model.params, torch.from_numpy(toks))
+    ssm, conv = hybrid.init_states(tcfg, 2, "cpu")
+    got, state = hybrid.forward(tcfg, model.params, torch.from_numpy(toks),
+                                ssm_states=ssm, conv_states=conv)
     want, jstate = jhybrid.forward(jcfg, jax.tree.map(jnp.asarray, tree), jnp.asarray(toks))
     _close(got, want, 1e-4)
     _close(state["ssm"], jstate["ssm"], 1e-4)

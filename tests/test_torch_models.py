@@ -392,17 +392,15 @@ def test_configs_equal_the_reference_field_for_field(arch):
 
 
 def test_arch_ids_list_only_what_is_ported():
-    """Every architecture of the reference but whisper_large_v3 (the audio
-    family, which comes with the encoder-decoder slice)."""
+    """Every architecture of the reference, in its order, each building a
+    reduced model; an id the reference does not have raises."""
     ported = DENSE + ["qwen2_moe_a2_7b", "llama4_scout_17b_a16e", "qwen2_vl_2b",
-                      "mamba2_370m", "zamba2_2_7b"]
+                      "whisper_large_v3", "mamba2_370m", "zamba2_2_7b"]
     assert sorted(tconfigs.ARCH_IDS) == sorted(ported)
-    assert set(tconfigs.ARCH_IDS) < set(jconfigs.ARCH_IDS)
-    assert sorted(set(jconfigs.ARCH_IDS) - set(ported)) == ["whisper_large_v3"]
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert sorted(tconfigs.all_configs()) == sorted(ported)
-    for arch in sorted(set(jconfigs.ARCH_IDS) - set(ported)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tconfigs.get_config(arch)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tconfigs.get_config("no_such_arch")
     for arch in ported:
         assert Model(tconfigs.reduced_config(arch), device="cpu").cfg.name.endswith("_smoke")
 
@@ -467,14 +465,33 @@ def test_convert_round_trip_and_checks():
         convert.params_from_reference(bad, tcfg, device="cpu")
 
 
-def test_families_and_options_of_later_slices_raise():
-    """Only the audio family (whisper_large_v3) is still to come; the MoE
-    and M-RoPE options build."""
+def test_families_and_options_of_later_slices_raise(tmp_path):
+    """Every family of the reference builds; what needs more than one device
+    (fsdp, remesh, restoring onto another layout) comes with the sharding
+    slice and raises; an unknown family raises; the MoE and M-RoPE options
+    build."""
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
     dense = tconfigs.reduced_config("stablelm_3b")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(dataclasses.replace(dense, family="audio"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tconfigs.param_count(dataclasses.replace(dense, family="audio"))
+    audio = tconfigs.reduced_config("whisper_large_v3")
+    assert Model(audio, device="cpu").dec["xq"].shape == (2, 64, 64)
+    assert tconfigs.param_count(audio) == jconfigs.param_count(jconfigs.reduced_config(
+        "whisper_large_v3"))
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(dataclasses.replace(dense, family="retnet"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        tconfigs.param_count(dataclasses.replace(dense, family="retnet"))
+    data = DataConfig(vocab=dense.vocab, seq_len=8, global_batch=2)
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        Trainer(dense, AdamWConfig(), TrainConfig(fsdp=True), data, device="cpu")
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        Trainer(dense, AdamWConfig(), TrainConfig(checkpoint_dir=str(tmp_path)), data,
+                device="cpu").remesh(None)
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        restore_tree("unused", {}, shardings={})
     moe = dataclasses.replace(dense, family="moe",
                               moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
     assert "layers.we_gate" in transformer.param_shapes(moe)
