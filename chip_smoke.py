@@ -57,7 +57,22 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          failure injected at step 5 restarts from its step-4 checkpoint and
                          must end bit for bit where an uninterrupted run ends; (c) float32
                          gradients through ``"chunked"`` against ``"xla"`` within 1e-4
-14. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
+14. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
+                         ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess at
+                         full width and depth beside the train phase's un-meshed run; float32
+                         at 2 layers, meshed against un-meshed within 1e-6 (bit for bit
+                         expected, else the first op that differs is named); a checkpoint
+                         saved under fsdp restored after ``remesh`` bit for bit; no kernel
+15. ``dryrun``           ``python -m repro_torch.launch.dryrun`` on meta tensors (processes of
+                         its own, started at train_mesh): every stablelm_3b cell on the
+                         one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k on 16 x 16;
+                         each record's status, flops, bytes, memory, collectives, errors
+16. ``select``           the variant selector on the card (the paper's Fig. 9 contract):
+                         stablelm_3b at 8 x 512, remat {none, dots, full} x microbatches
+                         {1, 4}, each dry-run and costed against the card's memory; only the
+                         variants predicted to fit run (1 + 3 steps, measured peak memory);
+                         fails if one of them runs out of memory or the chosen one does not run
+17. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
                          the serving paths, error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
@@ -66,7 +81,7 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-15. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
+18. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after, prints its initialisation and serving peaks of device memory
@@ -79,7 +94,10 @@ in float32 within 1e-3 (qwen2_moe at 2 of its layers, whisper at 2).
 ``--phases serve,...,serve_whisper,profile`` adds a ``torch.profiler`` pass over
 a few decode steps and a 512-token prefill of each served model (whisper: the
 prefill of its 8 x 1,500 frames), taken while it is on the card (device time
-by kernel, device busy share); it is not part of the default run.  The ``run`` line gives the wall time of the whole run.
+by kernel, device busy share); it is not part of the default run, nor is
+``--phases device,dryrun_all``, the dry-run's whole ``--all --mesh both`` sweep
+(one process an architecture; its wall time and its ``error`` cells).  The
+``run`` line gives the wall time of the whole run and of each phase.
 
 Any failed phase ends the run with a non-zero exit code; there is no CPU
 fallback.  The last line is ``{"ok": true, "device": {...}}``.
@@ -102,6 +120,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -112,9 +131,10 @@ from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
-PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train", "kernels",
-          "serve_throughput"]
-EXTRA_PHASES = ["profile"]   # not run by default: --phases serve,...,serve_whisper,profile
+PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train", "train_mesh",
+          "dryrun", "select", "kernels", "serve_throughput"]
+# not run by default: --phases serve,...,serve_whisper,profile; --phases device,dryrun_all
+EXTRA_PHASES = ["profile", "dryrun_all"]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
@@ -1541,6 +1561,7 @@ def phase_train(ctx):
             "losses": losses, "params_and_moments_gb": state_gb / 2**30,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
             "kernel_launches": launches}
+        ctx["train_full"] = out["full"]
         require(len(losses) == TRAIN["steps"] and all(np.isfinite(losses)), "train: losses")
         require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
         del tr, run
@@ -1619,6 +1640,411 @@ def phase_train(ctx):
         gc.collect()
         torch.cuda.empty_cache()
     emit("train", **out)
+
+
+# ---------------------------------------------------------------------------
+# the mesh, the dry-run and the variant selector
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_MESH = dict(check_layers=2, check_steps=3, elastic_layers=2, elastic_steps=2)
+#: the dryrun phase's sweeps, one process each: every stablelm_3b cell on the
+#: card's one-rank mesh; qwen2_7b and llama4 (its 16 experts take expert
+#: parallelism; both have too few KV heads for the model axis, so their
+#: caches shard the sequence) on the 16 x 16 production mesh
+DRYRUN = {
+    "stablelm_1gpu": ["--arch", "stablelm_3b", "--mesh", "1gpu"],
+    "qwen2_7b_16x16": ["--arch", "qwen2_7b", "--shape", "train_4k,decode_32k", "--mesh", "single"],
+    "llama4_16x16": ["--arch", "llama4_scout_17b_a16e", "--shape", "train_4k,decode_32k",
+                     "--mesh", "single"],
+}
+#: the select phase's cell (the train phase's 8 x 512 tokens) and variants
+SELECT = dict(remats=("none", "dots", "full"), microbatches=(1, 4), warmup=1, timed=3)
+RECORD_KEYS = ("arch", "shape", "mesh", "kind", "seq_len", "global_batch", "remat", "fsdp",
+               "microbatches", "mode", "status")
+
+
+def _subprocess_env():
+    return {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "1"}
+
+
+def start_dryruns(ctx):
+    """Start every dry-run the dryrun and select phases read, all at once,
+    each in a process of its own (a process holds one process group, and
+    theirs is the fake one): they run on meta tensors on the host's cores
+    while the card trains.  Idempotent; the processes end with the run."""
+    if "dryruns" in ctx:
+        return ctx["dryruns"]
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    sweeps = dict(DRYRUN)
+    for remat in SELECT["remats"]:
+        sweeps[f"select_{remat}"] = [
+            "--arch", TRAIN["arch"], "--shape", "train_4k", "--seq-len", str(TRAIN["seq_len"]),
+            "--global-batch", str(TRAIN["global_batch"]), "--mesh", "1gpu", "--remat", remat,
+            "--microbatches", ",".join(map(str, SELECT["microbatches"]))]
+    jobs = {}
+    for name, args in sweeps.items():
+        out, log = os.path.join(tmp, f"{name}.json"), open(os.path.join(tmp, f"{name}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                 "--out", out], cwd=ROOT, env=_subprocess_env(), stdout=log,
+                                stderr=subprocess.STDOUT)
+        jobs[name] = dict(proc=proc, out=out, log=log, args=args)
+    ctx["dryruns"] = dict(dir=tmp, jobs=jobs, started=time.perf_counter())
+    ctx.setdefault("processes", []).extend(j["proc"] for j in jobs.values())
+    return ctx["dryruns"]
+
+
+def dryrun_records(ctx, name, timeout=900):
+    """The records of one dry-run sweep, once its process has ended (it
+    must end with 0: a failing cell is a record, not a crash)."""
+    job = start_dryruns(ctx)["jobs"][name]
+    rc = job["proc"].wait(timeout=timeout)
+    job["log"].close()
+    with open(job["log"].name) as f:
+        tail = f.read()[-3000:]
+    require(rc == 0 and os.path.exists(job["out"]), f"dryrun {name} exited {rc}: {tail}")
+    with open(job["out"]) as f:
+        records = json.load(f)
+    for rec in records:
+        require(all(k in rec for k in RECORD_KEYS), f"dryrun {name}: record keys {sorted(rec)}")
+    return records, time.perf_counter() - ctx["dryruns"]["started"]
+
+
+def host_mesh(ctx):
+    """This process's rank of a one-rank NCCL group (file store) and the
+    (data=1, model=1) mesh over it; the group ends with the run."""
+    if "mesh" not in ctx:
+        import tempfile
+
+        from repro_torch.launch.mesh import make_host_mesh, start_process_group
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_group_")
+        ctx.setdefault("tmp_dirs", []).append(tmp)
+        start_process_group("cuda", 0, 1, os.path.join(tmp, "store"))
+        ctx["mesh"] = make_host_mesh()
+    return ctx["mesh"]
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+class _OpLog(TorchDispatchMode):
+    """Each non-view op's name and the float64 sum of its first output."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        first = out[0] if isinstance(out, (tuple, list)) and out else out
+        if (not func.is_view and isinstance(first, torch.Tensor) and first.numel()
+                and first.dtype.is_floating_point):
+            self.ops.append((str(func), float(first.double().sum())))
+        return out
+
+
+def first_different_op(tr_mesh, tr_plain, batch):
+    """Where two trainers' first gradient computations part: both traced op by
+    op (names and output sums), the first pair that differs."""
+    from repro_torch.runtime.trainer import loss_and_grads
+
+    logs = []
+    for tr in (tr_mesh, tr_plain):
+        params, _ = tr.init_state()
+        with _OpLog() as log:
+            loss_and_grads(tr.model, params, tr._put_batch(batch), tr.mesh, tr._shardings)
+        logs.append(log.ops)
+    for i, (a, b) in enumerate(zip(*logs)):
+        if a != b:
+            return {"index": i, "meshed": a, "plain": b}
+    return {"index": None, "ops": [len(logs[0]), len(logs[1])]}
+
+
+def phase_train_mesh(ctx):
+    """The meshed trainer on the card's one-rank NCCL mesh (data=1, model=1).
+    (a) ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess:
+    stablelm_3b at full width and depth, the train phase's data, optimizer
+    and remat, 8 x 512 tokens (attention by ``--seq-len``, as the reference's
+    CLI: ``xla``); reported beside the train phase's un-meshed run.  (b)
+    float32 at 2 layers, 3 steps: the meshed trainer (fsdp) against the
+    un-meshed one, within 1e-6 relative; bit for bit expected, and if not,
+    the first op that differs is named.  (c) elastic restore at 2 layers:
+    saved under the fsdp mesh at step 2, restored by a trainer without fsdp
+    after ``remesh`` to the mesh: parameters and moments bit for bit.  No
+    kernel runs (the kernels are forward only)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    start_dryruns(ctx)
+    cfg = get_config(TRAIN["arch"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = {"arch": cfg.name, "card": ctx.get("card"), "mesh": {"data": 1, "model": 1},
+           "backend": "nccl"}
+    try:
+        # (a) the CLI
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN["arch"],
+               "--steps", str(TRAIN["steps"]), "--global-batch", str(TRAIN["global_batch"]),
+               "--seq-len", str(TRAIN["seq_len"]), "--lr", "1e-3", "--warmup-steps", "2",
+               "--data-seed", str(TRAIN["data_seed"]), "--remat", "full", "--fsdp",
+               "--ckpt-every", "0", "--ckpt-dir", os.path.join(tmp, "cli")]
+        proc = subprocess.run(cmd, cwd=ROOT, env=_subprocess_env(), capture_output=True,
+                              text=True, timeout=900)
+        require(proc.returncode == 0, f"train CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        cli = json.loads(proc.stdout.strip().splitlines()[-1])
+        steady = cli["step_seconds"][1:]
+        out["cli"] = {"command": " ".join(cmd[1:]), "seconds": time.perf_counter() - t0,
+                      "attn_impl": "xla", "losses": cli["losses"],
+                      "step_ms": [t * 1e3 for t in cli["step_seconds"]],
+                      "step_ms_p50_after_first": float(np.median(steady)) * 1e3,
+                      "tokens_per_s": TRAIN["seq_len"] * TRAIN["global_batch"]
+                      / float(np.median(steady)),
+                      "peak_memory_gb": cli["peak_memory_gb"], "mesh": cli["mesh"],
+                      "kernel_launches": cli["kernel_launches"]}
+        out["unmeshed_train_phase"] = {k: ctx.get("train_full", {}).get(k) for k in (
+            "attn_impl", "losses", "step_ms_p50_after_first", "tokens_per_s", "peak_memory_gb")}
+        require(len(cli["losses"]) == TRAIN["steps"] and all(np.isfinite(cli["losses"]))
+                and cli["losses"][-1] < cli["losses"][0], f"train_mesh: CLI losses {cli['losses']}")
+        require(cli["kernel_launches"] == {"flash_attention": 0, "mamba2_ssd": 0},
+                f"train_mesh: the CLI launched a kernel: {cli['kernel_launches']}")
+
+        mesh = host_mesh(ctx)
+        reset_counts()
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN["steps"])
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                          global_batch=TRAIN["global_batch"], seed=TRAIN["data_seed"])
+
+        # (b) float32, 2 layers: meshed against un-meshed
+        cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_MESH["check_layers"], dtype=torch.float32)
+        trainers, runs = {}, {}
+        for name, kw in (("meshed", dict(mesh=mesh)), ("plain", dict(device=DEVICE))):
+            trainers[name] = Trainer(cfg32, opt, TrainConfig(
+                steps=TRAIN_MESH["check_steps"], checkpoint_every=0, remat="full",
+                attn_impl="chunked", fsdp=name == "meshed",
+                checkpoint_dir=os.path.join(tmp, name)), data, **kw)
+            runs[name] = trainers[name].run()
+        a, b = runs["meshed"], runs["plain"]
+        rel = max(float((_full(p) - b["params"][k]).abs().max()
+                        / b["params"][k].abs().max().clamp_min(1e-30))
+                  for k, p in a["params"].items())
+        loss_rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a["losses"], b["losses"]))
+        bitwise = a["losses"] == b["losses"] and all(
+            torch.equal(_full(p), b["params"][k]) for k, p in a["params"].items())
+        out["float32"] = {"layers": cfg32.n_layers, "steps": TRAIN_MESH["check_steps"],
+                          "losses_meshed": a["losses"], "losses_plain": b["losses"],
+                          "loss_rel_err": loss_rel, "param_rel_err": rel,
+                          "bit_for_bit": bitwise, "tolerance": 1e-6}
+        if not bitwise:
+            out["float32"]["first_different_op"] = first_different_op(
+                trainers["meshed"], trainers["plain"], SyntheticLM(data).batch(0))
+        require(loss_rel <= 1e-6 and rel <= 1e-6, f"train_mesh: float32 {out['float32']}")
+        del trainers, runs, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) elastic restore: saved under the fsdp mesh, restored after remesh
+        cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_MESH["elastic_layers"])
+        ck = os.path.join(tmp, "elastic")
+        steps = TRAIN_MESH["elastic_steps"]
+        saved = Trainer(cfg2, opt, TrainConfig(steps=steps, checkpoint_every=steps,
+                                               checkpoint_dir=ck, fsdp=True, remat="full",
+                                               attn_impl="chunked"), data, mesh=mesh).run()
+        tr = Trainer(cfg2, opt, TrainConfig(checkpoint_dir=ck, attn_impl="chunked"), data,
+                     device=DEVICE)
+        tr.remesh(mesh)
+        params, opt_state = tr.init_state()
+        opt_state, step = tr._restore(params, opt_state)
+        p_equal = all(torch.equal(_full(params[k]), _full(p)) for k, p in saved["params"].items())
+        m_equal = all(torch.equal(_full(opt_state[part][k]), _full(m)) for part in ("mu", "nu")
+                      for k, m in saved["opt_state"][part].items())
+        out["elastic"] = {"layers": cfg2.n_layers, "saved_at_step": steps, "restored_step": step,
+                          "saved_fsdp": True, "restored_fsdp": False,
+                          "checkpoint_bytes": dir_bytes(ck), "params_bit_equal": p_equal,
+                          "moments_bit_equal": m_equal}
+        require(step == steps and p_equal and m_equal, f"train_mesh: elastic {out['elastic']}")
+        del saved, tr, params, opt_state
+        launches = read_counts()
+        out["kernel_launches"] = launches
+        require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+                f"train_mesh: a forward-only kernel was launched: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("train_mesh", **out)
+
+
+def _gib(x):
+    return round(x / 2**30, 3)
+
+
+def phase_dryrun(ctx):
+    """``python -m repro_torch.launch.dryrun`` on meta tensors, in processes
+    of their own (started by :func:`start_dryruns`): every stablelm_3b cell on
+    the card's one-rank mesh, qwen2_7b and llama4 on 16 x 16.  Each record's
+    status, flops, bytes, per-device memory and collective bytes; a record
+    that failed is printed with its error."""
+    summary = {}
+    for name in DRYRUN:
+        records, waited = dryrun_records(ctx, name)
+        rows = []
+        for r in records:
+            row = {k: r[k] for k in ("arch", "shape", "mesh", "kind", "status")}
+            if r["status"] == "ok":
+                m, c = r["memory"], r["collectives"]
+                row.update(flops=r["flops"], bytes_accessed=r["bytes_accessed"],
+                           memory_gib={k: _gib(v) for k, v in m.items()},
+                           collectives={"total_gib": _gib(c["total_bytes"]),
+                                        "wire_gib": _gib(c["wire_bytes"]), "counts": c["counts"]},
+                           trace_s=r["lower_s"], placements=r.get("placements"),
+                           divisibility=r["divisibility"])
+            elif r["status"] == "error":
+                row["error"] = r["error"]
+            else:
+                row["skip_reason"] = r["skip_reason"]
+            rows.append(row)
+        summary[name] = {"args": DRYRUN[name], "ended_after_s": waited, "records": rows}
+        require(all(r["status"] in ("ok", "skipped", "error") for r in records), name)
+    require(len(summary["stablelm_1gpu"]["records"]) == 4, "dryrun: stablelm_3b has 4 cells")
+    emit("dryrun", card=ctx.get("card"), sweeps=summary,
+         errors=[f"{r['arch']}/{r['shape']}/{r['mesh']}: {r['error']}" for s in summary.values()
+                 for r in s["records"] if r["status"] == "error"])
+
+
+def phase_select(ctx):
+    """A11 on the card, the paper's Fig. 9 contract: the stablelm_3b training
+    cell at the train phase's 8 x 512 tokens on the one-rank mesh, variants
+    remat {none, dots, full} x microbatches {1, 4}.  Each is dry-run, costed
+    against the card's memory (``cost_from_record(..., hbm_bytes=
+    total_memory)``) and ranked by ``select``; only the variants predicted to
+    fit are launched (no variant ``select`` rejects is run): 1 warm-up step
+    and 3 timed steps each on the meshed trainer, with the measured peak of
+    device memory.  The phase fails if a variant predicted to fit runs out of
+    memory or the chosen one does not run; a mis-ranking is reported, not
+    failed."""
+    from repro_torch.core.tpu_predictor import cost_from_record, select
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    records = []
+    for remat in SELECT["remats"]:
+        recs, _ = dryrun_records(ctx, f"select_{remat}")
+        records.extend(recs)
+    require(len(records) == len(SELECT["remats"]) * len(SELECT["microbatches"])
+            and all(r["status"] == "ok" for r in records),
+            f"select: dry-run records {[(r['remat'], r['microbatches'], r['status'], r.get('error')) for r in records]}")
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    costs = {(r["remat"], r["microbatches"]): cost_from_record(
+        r, name=f"remat_{r['remat']}_mb{r['microbatches']}", hbm_bytes=hbm) for r in records}
+    best, ranked = select(list(costs.values()))
+    cfg = get_config(TRAIN["arch"])
+    steps = SELECT["warmup"] + SELECT["timed"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                      global_batch=TRAIN["global_batch"], seed=TRAIN["data_seed"])
+    mesh = host_mesh(ctx)
+    rows = {}
+    reset_counts()
+    for rec in records:
+        key = (rec["remat"], rec["microbatches"])
+        v = costs[key]
+        m = rec["memory"]
+        row = {"variant": v.name, "estimate_ms": v.estimate_s * 1e3, "dominant": v.dominant,
+               "terms_ms": {k: t * 1e3 for k, t in v.terms.items()},
+               "predicted_peak_gb": _gib(m["argument_bytes"] + m["temp_bytes"] + m["output_bytes"]),
+               "predicted_fits": v.fits_hbm, "launched": v.fits_hbm}
+        if v.fits_hbm:
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                run = Trainer(cfg, opt, TrainConfig(steps=steps, checkpoint_every=0,
+                                                    remat=key[0], microbatches=key[1], fsdp=True,
+                                                    attn_impl="chunked"), data, mesh=mesh).run()
+                torch.cuda.synchronize()
+                row.update(step_ms=[t * 1e3 for t in run["step_seconds"]],
+                           timed_step_ms=float(np.median(run["step_seconds"][SELECT["warmup"]:]))
+                           * 1e3, losses=run["losses"],
+                           measured_peak_gb=_gib(torch.cuda.max_memory_allocated() - base))
+            except torch.cuda.OutOfMemoryError as e:
+                row["oom"] = str(e)[:300]
+            finally:
+                run = None   # the variant's parameters and moments go before the next one
+        rows[v.name] = row
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = read_counts()
+    ran = {k: r for k, r in rows.items() if "timed_step_ms" in r}
+    ooms = [k for k, r in rows.items() if "oom" in r]
+    measured_best = min(ran, key=lambda k: ran[k]["timed_step_ms"]) if ran else None
+    slowest = max(ran, key=lambda k: ran[k]["timed_step_ms"]) if ran else None
+    out = {"card": ctx.get("card"), "hbm_bytes": hbm, "cell": {
+               "arch": cfg.name, "seq_len": TRAIN["seq_len"], "global_batch": TRAIN["global_batch"],
+               "mesh": "1gpu", "fsdp": True, "attn_impl": "chunked"},
+           "variants": list(rows.values()), "chosen": best.name,
+           "ranked_by_estimate": [v.name for v in ranked], "measured_best": measured_best,
+           "chosen_is_measured_best": best.name == measured_best,
+           "chosen_is_measured_slowest": best.name == slowest and len(ran) > 1,
+           "predicted_to_fit_but_oom": ooms, "kernel_launches": launches}
+    emit("select", **out)
+    require(not ooms, f"select: variants predicted to fit ran out of memory: {ooms}")
+    require(best.name in ran, f"select: the chosen variant {best.name} did not run")
+    require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+            f"select: a forward-only kernel was launched: {launches}")
+
+
+def phase_dryrun_all(ctx):
+    """Not in the default run: ``--all --mesh both``, one process an
+    architecture, at most as many at once as the host has cores; the wall
+    time of the whole sweep and the cells that came out ``error``."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    ctx.setdefault("tmp_dirs", []).append(tmp)
+    from repro_torch.configs import ARCH_IDS
+
+    t0 = time.perf_counter()
+    pending, running, done = list(ARCH_IDS), {}, {}
+    width = max(1, os.cpu_count() or 1)
+    while pending or running:
+        while pending and len(running) < width:
+            arch = pending.pop(0)
+            out = os.path.join(tmp, f"{arch}.json")
+            running[arch] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--mesh",
+                 "both", "--out", out], cwd=ROOT, env=_subprocess_env(),
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL), out)
+            ctx.setdefault("processes", []).append(running[arch][0])
+        for arch, (proc, out) in list(running.items()):
+            if proc.poll() is not None:
+                done[arch] = (proc.returncode, out)
+                del running[arch]
+        time.sleep(0.5)
+    seconds = time.perf_counter() - t0
+    records = []
+    for arch, (rc, out) in done.items():
+        require(rc == 0 and os.path.exists(out), f"dryrun_all: {arch} exited {rc}")
+        with open(out) as f:
+            records.extend(json.load(f))
+    emit("dryrun_all", card=ctx.get("card"), seconds=seconds, processes=width,
+         cells=len(records), ok=sum(r["status"] == "ok" for r in records),
+         skipped=sum(r["status"] == "skipped" for r in records),
+         errors=[{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"], "error": r["error"]}
+                 for r in records if r["status"] == "error"],
+         trace_s={f"{r['arch']}/{r['shape']}/{r['mesh']}": r["lower_s"] for r in records
+                  if r["status"] == "ok"})
 
 
 DENSE_WHY = ("bf16 through every layer: the kernel and attention_chunked round each layer's "
@@ -2084,6 +2510,27 @@ def phase_profile(ctx):
             f"profiled {ctx.get('profiled')}, served {served}")
 
 
+def stop_everything(ctx) -> None:
+    """Every process a phase started is stopped, the process group ended and
+    the temporary directories removed, however the run ends."""
+    import shutil
+
+    import torch.distributed as dist
+
+    for proc in ctx.get("processes", []):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if "dryruns" in ctx:
+        for job in ctx["dryruns"]["jobs"].values():
+            job["log"].close()
+        shutil.rmtree(ctx["dryruns"]["dir"], ignore_errors=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for tmp in ctx.get("tmp_dirs", []):
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2100,10 +2547,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 comparisons are in full fp32
     t_run = time.perf_counter()
     ctx = {"profile": "profile" in wanted}
-    for phase in PHASES + EXTRA_PHASES:
-        if phase in wanted:
-            globals()[f"phase_{phase}"](ctx)
+    phase_seconds = {}
+    try:
+        for phase in PHASES + EXTRA_PHASES:
+            if phase in wanted:
+                t0 = time.perf_counter()
+                globals()[f"phase_{phase}"](ctx)
+                phase_seconds[phase] = round(time.perf_counter() - t0, 3)
+    finally:
+        stop_everything(ctx)
     emit("run", seconds=round(time.perf_counter() - t_run, 3), phases=wanted,
+         phase_seconds=phase_seconds,
          peak_memory_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     if "card" in ctx:
         print(ctx["card"], flush=True)

@@ -14,11 +14,14 @@ that a checkpoint written by either package restores into the other:
   ``<path>.tmp``, which is renamed to ``<path>`` only once complete;
 * **async**: ``save()`` copies the tensors to host memory, then writes on a
   worker thread; ``wait()`` joins it and raises what it raised;
-* **keep-k**: older checkpoints beyond ``keep`` are deleted after a save.
-
-Restoring onto another device layout (the reference's elastic restore) comes
-with the sharding slice: ``restore(..., shardings=...)`` raises
-``NotImplementedError``.
+* **keep-k**: older checkpoints beyond ``keep`` are deleted after a save;
+* **sharded leaves**: a DTensor leaf is gathered to its full tensor on every
+  rank (a collective, so every rank calls ``save``) and written by the rank
+  whose manager is the ``writer`` (rank 0) alone: the layout on disk is the
+  one above whatever the mesh;
+* **elastic restore**: ``restore(..., shardings=...)`` places each leaf on
+  its target :class:`repro_torch.sharding.Sharding`, which may belong to
+  another mesh than the one the checkpoint was saved under, or to none.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..sharding import Sharding, distribute
 
 Tree = Any
 
@@ -71,7 +77,10 @@ def _rebuild(like: Tree, leaves: Dict[str, Any], prefix: str = "") -> Tree:
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """``(array to store, dtype name)`` of a leaf, a copy in host memory that
-    later updates of the leaf do not touch: bfloat16 as raw bits."""
+    later updates of the leaf do not touch: bfloat16 as raw bits; a DTensor
+    gathered to its full tensor first."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -101,13 +110,15 @@ def restore_tree(
     path: str, like: Tree, shardings: Optional[Tree] = None,
 ) -> Tuple[Tree, Dict[str, Any]]:
     """The checkpoint at ``path`` in the structure of ``like``: each leaf a
-    tensor in the dtype it was saved in, on the device of ``like``'s leaf
-    (the CPU where that is not a tensor).  A leaf whose shape differs from
-    ``like``'s raises ``ValueError``, a missing one ``KeyError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto a sharded layout (elastic restore) comes with the sharding slice "
-            "of the port (ROADMAP A10)")
+    tensor in the dtype it was saved in.  ``shardings`` (a tree matching
+    ``like``, of :class:`~repro_torch.sharding.Sharding` or ``None`` leaves)
+    places each leaf on its mesh as a DTensor, whatever mesh the checkpoint
+    was written under (elastic restore); without it a DTensor leaf of
+    ``like`` keeps its own layout, and any other leaf lands on the device of
+    ``like``'s leaf (the CPU where that is not a tensor).  A leaf whose
+    (global) shape differs from ``like``'s raises ``ValueError``, a missing
+    one ``KeyError``."""
+    targets = dict(_flatten(shardings)) if shardings is not None else {}
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {e["key"]: e for e in manifest["leaves"]}
@@ -121,14 +132,24 @@ def restore_tree(
         if tuple(arr.shape) != tuple(want):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != expected {tuple(want)}")
         t = _from_host(arr, entry["dtype"])
-        leaves[key] = t.to(leaf.device) if isinstance(leaf, torch.Tensor) else t
+        target = targets.get(key)
+        if target is None and isinstance(leaf, DTensor):
+            target = Sharding.of(leaf)
+        if target is not None:
+            leaves[key] = distribute(t.to(target.device), target)
+        else:
+            leaves[key] = t.to(leaf.device) if isinstance(leaf, torch.Tensor) else t
     return _rebuild(like, leaves), manifest["extra"]
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    """``writer`` False: ``save`` gathers sharded leaves (the collective every
+    rank joins) and writes nothing; the rank-0 manager writes."""
+
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.directory = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -140,6 +161,8 @@ class CheckpointManager:
         self.wait()
         # snapshot to host memory before returning control to training
         host = [(key, _to_host(leaf)) for key, leaf in _flatten(tree)]
+        if not self.writer:
+            return
         extra = dict(extra or {}, step=step)
         path = self._path(step)
 

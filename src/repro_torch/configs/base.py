@@ -3,16 +3,16 @@
 Counterpart of ``repro.configs.base``.  Every ported architecture is
 selectable by id; ``reduced_config`` gives the small smoke-test variant of
 the same family.  ``CONFIG`` and ``REDUCED`` of each module equal the
-reference's field for field (``dtype`` is the torch type).  ``ARCH_IDS``
-lists only what is ported so far (all but whisper_large_v3, whose family comes
-with the encoder-decoder slice); the shape cells of the dry-run follow with
-the launch slice.
+reference's field for field (``dtype`` is the torch type).  ``shape_cells``
+returns the dry-run's (shape-name, :class:`ShapeCell`) cells of an
+architecture, with the reference's skips and their reasons.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
 from repro_torch.models import ModelConfig
 from repro_torch.models.mamba2 import mamba_dims
@@ -29,6 +29,51 @@ ARCH_IDS = [
     "mamba2_370m",
     "zamba2_2_7b",
 ]
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+    skip_reason: Optional[str] = None
+
+    @property
+    def skipped(self) -> bool:
+        return self.skip_reason is not None
+
+
+SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+#: archs whose attention is full/quadratic with no sub-quadratic mode:
+#: long_500k is skipped per the assignment.
+_FULL_ATTENTION = {
+    "stablelm_3b": "pure full attention (quadratic); long_500k skipped per assignment",
+    "qwen2_7b": "pure full attention (quadratic); long_500k skipped per assignment",
+    "granite_8b": "pure full attention (quadratic); long_500k skipped per assignment",
+    "qwen2_moe_a2_7b": "pure full attention (quadratic); long_500k skipped per assignment",
+    "qwen2_vl_2b": "pure full attention (quadratic); long_500k skipped per assignment",
+    "whisper_large_v3": "enc-dec with 1500-frame encoder and 448-pos decoder; 500k ill-defined",
+}
+
+
+def shape_cells(arch: str) -> List[ShapeCell]:
+    arch = arch.replace("-", "_")
+    cells = []
+    for name, (seq, batch, kind) in SHAPES.items():
+        skip = None
+        if name == "long_500k" and arch in _FULL_ATTENTION:
+            skip = _FULL_ATTENTION[arch]
+        cells.append(
+            ShapeCell(name=name, seq_len=seq, global_batch=batch, kind=kind, skip_reason=skip)
+        )
+    return cells
 
 
 def _module(arch: str):

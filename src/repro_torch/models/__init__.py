@@ -24,12 +24,16 @@ trainer:
                                        the audio family batch["frame_embeds"]
     decode_step(tokens, state)      -> (hidden, new_state)
     logits(hidden)                  -> vocabulary logits
+    abstract_init()                 -> (parameters on ``meta``, logical axes)
+    bind(params)                    -> a context in which the entry points run on
+                                       ``params`` instead of the model's own
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +44,8 @@ from . import common, encdec, hybrid, mamba2, transformer
 from .common import check_remat, rms_norm
 from .transformer import BIG, ModelConfig, MoEConfig
 
-__all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dtypes"]
+__all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dtypes",
+           "param_axes"]
 
 State = Dict[str, Any]
 
@@ -70,6 +75,22 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         **{f"mamba.{k}": (cfg.n_layers,) + s for k, s in layer.items()},
         "final_ln": (cfg.d_model,),
     }
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat ``name -> logical axes`` (:func:`param_shapes`' keys), for every
+    family: the reference's axes tree, flattened as :mod:`repro_torch.convert`
+    flattens its parameter tree."""
+    _require_ported(cfg)
+    if cfg.family in _TRANSFORMER:
+        return transformer.param_axes(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.param_axes(cfg)
+    if cfg.family == "audio":
+        return encdec.param_axes(cfg)
+    return {"embed": ("vocab", "embed_tbl"),
+            **{f"mamba.{k}": ("layers",) + a for k, a in mamba2.layer_axes().items()},
+            "final_ln": ("embed",)}
 
 
 def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
@@ -105,6 +126,7 @@ class Model(nn.Module):
         self.ssd_impl = ssd_impl
         self.remat = check_remat(remat)
         self.device = resolve_device(device)
+        self._bound: Optional[Mapping[str, Any]] = None
         storage = self.device if storage is None else torch.device(storage)
         # storage only; init() or load_state_dict() gives it values.  The
         # parameters ask for no gradients: a trainer turns them on
@@ -153,8 +175,34 @@ class Model(nn.Module):
 
     @property
     def params(self) -> transformer.Params:
-        """The parameters as the reference's nested tree (no copy)."""
+        """The parameters as the reference's nested tree (no copy), or the
+        tree bound by :meth:`bind`."""
+        if self._bound is not None:
+            return self._bound
         return transformer.nest(dict(self.named_parameters()))
+
+    @contextlib.contextmanager
+    def bind(self, params: Mapping[str, Any]) -> Iterator["Model"]:
+        """Inside the context the entry points run on ``params`` (a nested
+        tree with the reference's keys) instead of the model's own parameters:
+        the meshed trainer and the dry-run pass each rank's gathered weights
+        (:func:`repro_torch.sharding.gathered_tree`) to a model whose own
+        storage is ``meta``."""
+        prev, self._bound = self._bound, params
+        try:
+            yield self
+        finally:
+            self._bound = prev
+
+    def abstract_init(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[Optional[str], ...]]]:
+        """``(parameters, logical axes)`` without allocating anything: each
+        parameter an empty ``meta`` tensor of its shape and dtype, keyed as
+        :func:`param_shapes`; the dry-run stands them in for the weights."""
+        cfg = self.cfg
+        dtypes = param_dtypes(cfg)
+        params = {name: torch.empty(shape, dtype=dtypes[name], device="meta")
+                  for name, shape in param_shapes(cfg).items()}
+        return params, param_axes(cfg)
 
     # -- forward paths -----------------------------------------------------------
 
@@ -292,4 +340,4 @@ class Model(nn.Module):
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.family in _TRANSFORMER:   # lm_head, or embed.T where tied
             return transformer.lm_head(self.cfg, self.params, h)
-        return h @ self.embed.T.to(h.dtype)   # ssm, hybrid and audio tie their embedding
+        return h @ self.params["embed"].T.to(h.dtype)   # ssm, hybrid and audio tie their embedding

@@ -7,8 +7,9 @@ the stacked leading axis in Python, so there is no ``scan`` here.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -18,7 +19,8 @@ from ..kernels.ref import NEG_INF, floor_div
 __all__ = [
     "NEG_INF", "trunc_normal", "trunc_normal_", "rms_norm", "layer_norm", "rope_frequencies",
     "rope_sin_cos", "apply_rope", "mrope_sin_cos", "apply_mrope", "swiglu", "gelu",
-    "causal_mask_bias", "REMATS", "check_remat", "remat_call",
+    "causal_mask_bias", "REMATS", "check_remat", "remat_call", "unrolled_scans",
+    "layer_params",
 ]
 
 # ---------------------------------------------------------------------------
@@ -223,6 +225,33 @@ def remat_call(fn: Callable, remat: str, *args, **kwargs):
     if check_remat(remat) == "none" or not torch.is_grad_enabled():
         return fn(*args, **kwargs)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Layer stacks
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def unrolled_scans():
+    """The reference's dry-run switch: inside it every ``lax.scan`` of its
+    model stack is unrolled, so that XLA's cost analysis counts each loop body
+    once per iteration.  The port's layers are a Python loop, so every layer is
+    always counted: ``rolled`` and ``unrolled`` give the same counts here, and
+    this context manager changes nothing.  It is kept for the dry-run's
+    ``--mode``."""
+    yield
+
+
+def layer_params(stack: Mapping[str, Any], i: int) -> Mapping[str, torch.Tensor]:
+    """Layer ``i``'s parameters of a layer-stacked group (``{name: w[i]}``).
+    A group that hands out its layers itself (``stack.layer(i)``: the meshed
+    trainer's and the dry-run's :class:`repro_torch.sharding.GatheredStack`,
+    which gathers each weight where the layer reads it) does so."""
+    take = getattr(stack, "layer", None)
+    if take is not None:
+        return take(i)
+    return {name: w[i] for name, w in stack.items()}
 
 
 # ---------------------------------------------------------------------------

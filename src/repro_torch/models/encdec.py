@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import attention
-from .common import remat_call, rms_norm, swiglu, trunc_normal_
+from .common import layer_params, remat_call, rms_norm, swiglu, trunc_normal_
 from .transformer import ModelConfig, _cache_index, check_cache_room
 
 Params = Dict[str, Any]
@@ -70,6 +70,27 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     shapes.update({f"dec.{k}": s for k, s in _layer_shapes(cfg, _SELF + _CROSS + _FFN).items()})
     shapes["final_ln"] = (D,)
     return shapes
+
+
+#: logical axes of a stacked encoder / decoder leaf, the reference's
+_LAYER_AXES = {
+    "ln1": ("layers", "embed"), "wq": ("layers", "embed", "heads"),
+    "wk": ("layers", "embed", "heads"), "wv": ("layers", "embed", "heads"),
+    "wo": ("layers", "heads", "embed"), "ln2": ("layers", "embed"),
+    "w_gate": ("layers", "embed", "ff"), "w_up": ("layers", "embed", "ff"),
+    "w_down": ("layers", "ff", "embed"),
+    "lnx": ("layers", "embed"), "xq": ("layers", "embed", "heads"),
+    "xk": ("layers", "embed", "heads"), "xv": ("layers", "embed", "heads"),
+    "xo": ("layers", "heads", "embed"),
+}
+_TOP_AXES = {"frame_proj": ("embed", "embed2"), "enc_ln": ("embed",),
+             "embed": ("vocab", "embed_tbl"), "final_ln": ("embed",)}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat ``name -> logical axes`` (:func:`param_shapes`' keys), the reference's."""
+    return {name: _LAYER_AXES[name.split(".", 1)[1]] if "." in name else _TOP_AXES[name]
+            for name in param_shapes(cfg)}
 
 
 def fill_params(
@@ -151,10 +172,6 @@ def _cross(
     return h + (o.reshape(B, S, -1) @ lp["xo"]).to(h.dtype)
 
 
-def _layer(stack: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {name: w[i] for name, w in stack.items()}
-
-
 def encode(
     cfg: ModelConfig, params: Params, frame_embeds: torch.Tensor, attn_impl: str = "chunked"
 ) -> torch.Tensor:
@@ -164,7 +181,7 @@ def encode(
     B, T, _ = h.shape
     positions = _positions(B, T, h.device)
     for i in range(cfg.n_layers):
-        h = _self_block(cfg, _layer(params["enc"], i), h, positions, attn_impl, causal=False)
+        h = _self_block(cfg, layer_params(params["enc"], i), h, positions, attn_impl, causal=False)
     return rms_norm(h, params["enc_ln"])
 
 
@@ -185,7 +202,7 @@ def decode_train(
         return _cross(cfg, lp, h, enc_out, enc_pos, attn_impl)
 
     for i in range(cfg.n_layers):
-        h = remat_call(body, remat, h, _layer(params["dec"], i))
+        h = remat_call(body, remat, h, layer_params(params["dec"], i))
     return rms_norm(h, params["final_ln"])
 
 
@@ -205,7 +222,7 @@ def decode_step(
     cache_index = _cache_index(positions)
     self_impl = decode_self_impl(attn_impl)
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec"], i)
+        lp = layer_params(params["dec"], i)
         h = _self_block(cfg, lp, h, positions, self_impl, causal=True,
                         kv_cache=(kv_caches[0][i], kv_caches[1][i]),
                         cache_positions=cache_positions, cache_index=cache_index)

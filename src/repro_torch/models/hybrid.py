@@ -21,7 +21,7 @@ from .attention import attention
 from .common import (
     apply_rope, check_remat, remat_call, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
 )
-from .mamba2 import fill_mamba_layers, init_states, layer_shapes, run_stack
+from .mamba2 import fill_mamba_layers, init_states, layer_axes, layer_shapes, run_stack
 from .transformer import ModelConfig, _cache_index, check_cache_room, lm_loss
 
 Params = Dict[str, Any]
@@ -58,6 +58,23 @@ def fill_params(
         else:
             trunc_normal_(p, generator, 1.0 / math.sqrt(p.shape[0]))
     params["final_ln"].zero_()
+
+
+#: logical axes of the shared block's leaves, the reference's
+SHARED_AXES = {
+    "ln1": ("embed",), "wq": ("embed", "heads"), "wk": ("embed", "heads"),
+    "wv": ("embed", "heads"), "wo": ("heads", "embed"), "ln2": ("embed",),
+    "w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed"),
+}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat ``name -> logical axes`` (:func:`param_shapes`' keys), the reference's."""
+    axes: Dict[str, Tuple[Optional[str], ...]] = {"embed": ("vocab", "embed_tbl")}
+    axes.update({f"mamba.{k}": ("layers",) + a for k, a in layer_axes().items()})
+    axes.update({f"shared_attn.{k}": a for k, a in SHARED_AXES.items()})
+    axes["final_ln"] = ("embed",)
+    return axes
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

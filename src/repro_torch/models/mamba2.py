@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import rms_norm, trunc_normal_
+from .common import layer_params, rms_norm, trunc_normal_
 
 D_CONV = 4  # depthwise causal conv width (mamba2 default)
 N_GROUPS = 1
@@ -63,6 +63,22 @@ def layer_shapes(
         "norm": (d_inner,),
         "out_proj": (d_inner, d_model),
         "ln": (d_model,),
+    }
+
+
+def layer_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    """``name -> logical axes`` of one layer's parameters, the reference's
+    (:func:`layer_shapes`' keys; a stack prepends ``"layers"``)."""
+    return {
+        "in_proj": ("embed", "ff"),
+        "conv_w": (None, "ff"),
+        "conv_b": ("ff",),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "dt_bias": (None,),
+        "norm": ("ff",),
+        "out_proj": ("ff", "embed"),
+        "ln": ("embed",),
     }
 
 
@@ -310,7 +326,7 @@ def run_stack(
     (a prompt too short for a conv state leaves that layer's as it was).
     ``ssm_states`` ``None`` (training) keeps no state."""
     for i in layer_ids:
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = layer_params(layers, i)
         h, new_ssm, new_conv = mamba_layer(
             lp, h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk=cfg.ssm_chunk,
             ssm_state=ssm_states[i] if decode else None,

@@ -33,8 +33,8 @@ import torch.utils.checkpoint
 from ..device import DeviceLike, resolve_device
 from .attention import attention
 from .common import (
-    apply_mrope, apply_rope, check_remat, mrope_sin_cos, remat_call, rms_norm, rope_sin_cos,
-    swiglu, trunc_normal_,
+    apply_mrope, apply_rope, check_remat, layer_params, mrope_sin_cos, remat_call, rms_norm,
+    rope_sin_cos, swiglu, trunc_normal_,
 )
 
 Params = Dict[str, Any]
@@ -143,6 +143,35 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     if cfg.family == "vlm":
         shapes["patch_proj"] = (D, D)
     return shapes
+
+
+#: logical axes of each stacked layer leaf, the reference's
+_LAYER_AXES = {
+    "ln1": ("layers", "embed"), "ln2": ("layers", "embed"),
+    "wq": ("layers", "embed", "heads"), "wk": ("layers", "embed", "heads"),
+    "wv": ("layers", "embed", "heads"), "wo": ("layers", "heads", "embed"),
+    "bq": ("layers", "heads"), "bk": ("layers", "heads"), "bv": ("layers", "heads"),
+    "w_gate": ("layers", "embed", "ff"), "w_up": ("layers", "embed", "ff"),
+    "w_down": ("layers", "ff", "embed"),
+    "router": ("layers", "embed", "expert_dim"),
+    "we_gate": ("layers", "expert", "embed", "ff_expert"),
+    "we_up": ("layers", "expert", "embed", "ff_expert"),
+    "we_down": ("layers", "expert", "ff_expert", "embed"),
+    "ws_gate": ("layers", "embed", "ff"), "ws_up": ("layers", "embed", "ff"),
+    "ws_down": ("layers", "ff", "embed"), "ws_g": ("layers", "embed", None),
+}
+#: the vocabulary matrices keep their D dim replicated ("embed_tbl"): the
+#: reference's reason is that FSDP-sharding it makes the head contract over a
+#: data-sharded dim
+_TOP_AXES = {"embed": ("vocab", "embed_tbl"), "final_ln": ("embed",),
+             "lm_head": ("embed_tbl", "vocab"), "patch_proj": ("embed", "embed2")}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat ``name -> logical axes`` (:func:`param_shapes`' keys), the
+    reference's: the names :mod:`repro_torch.sharding`'s rules map onto a mesh."""
+    return {name: _LAYER_AXES[name.split(".", 1)[1]] if "." in name else _TOP_AXES[name]
+            for name in param_shapes(cfg)}
 
 
 def fill_params(
@@ -401,7 +430,10 @@ def check_cache_room(positions: torch.Tensor, S: int, max_len: int) -> None:
     """Raises ``ValueError`` unless ``S`` tokens starting at every
     ``positions[:, 0]`` fit a cache of ``max_len`` (the reference's
     ``dynamic_update_slice`` would clamp the start and overwrite the tail).
-    One host read a call."""
+    One host read a call; none on ``meta`` tensors, which hold no values (the
+    dry-run's)."""
+    if positions.device.type == "meta":
+        return
     first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
     if first < 0 or last + S > max_len:
         raise ValueError(
@@ -457,7 +489,7 @@ def forward(
 
     layers = params["layers"]
     for i, kind in enumerate(cfg.layer_kinds()):
-        lp = {name: w[i] for name, w in layers.items()}
+        lp = layer_params(layers, i)
         cache = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
         h = remat_call(block, remat, cfg, h, lp, kind, positions, attn_impl,
                        kv_cache=cache, cache_positions=cache_positions,
@@ -530,3 +562,9 @@ def init_kv_cache(
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_cache_axes() -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """Logical axes of the ``(L, B, S, Hkv, Dh)`` K and V caches."""
+    ax = ("layers", "batch", "kv_seq", "heads", "head_dim")
+    return ax, ax

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -75,6 +75,7 @@ def global_norm(tree: Params) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig, params: Params, grads: Params, state: Mapping[str, object],
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, Dict[str, object], Dict[str, torch.Tensor]]:
     """One step, **in place**: gradients clipped by their global norm to
     ``grad_clip``, moments updated, bias-corrected, and the decoupled weight
@@ -87,11 +88,13 @@ def adamw_update(
     The parameters and moments are overwritten (no second copy of the model
     or its moments; the reference returns new trees).  Returns ``(params,
     new state, {"grad_norm", "lr"})``, the state holding the same moments and
-    the new count."""
+    the new count.  ``grad_norm`` is the global norm where ``grads`` are each
+    rank's blocks of larger tensors (the meshed trainer computes it over the
+    mesh); it defaults to :func:`global_norm` of ``grads``."""
     count = state["count"] + 1
     dev = count.device
     lr = cosine_schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.minimum(_f32(1.0, dev), cfg.grad_clip / torch.clamp_min(gnorm, 1e-9))
     c = count.to(torch.float32)
     bias1 = 1 - _f32(cfg.b1, dev) ** c

@@ -9,6 +9,11 @@ against itself.  ``python3 chip_smoke.py`` runs the full sweep.
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -122,3 +127,23 @@ def test_restart_is_bit_exact_on_the_card(tmp_path):
         outs.append(tr.run(fault_injector=fail))
     assert outs[1]["restarts"] == 1 and outs[0]["losses"][-1] == outs[1]["losses"][-1]
     assert all(torch.equal(p, outs[1]["params"][k]) for k, p in outs[0]["params"].items())
+
+
+@pytest.mark.gpu
+def test_train_cli_with_fsdp_on_one_nccl_rank(tmp_path):
+    """``python -m repro_torch.launch.train --smoke --fsdp``: one NCCL rank on
+    a (data=1, model=1) mesh, 2 steps; rank 0's lines and its peak memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "stablelm_3b", "--smoke",
+         "--steps", "2", "--seq-len", "64", "--global-batch", "4", "--fsdp",
+         "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2"],
+        cwd=root, env={**os.environ, "PYTHONPATH": os.path.join(root, "src")},
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["mesh"] == {"data": 1, "model": 1} and rec["fsdp"] is True
+    assert len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
+    assert rec["peak_memory_gb"] > 0

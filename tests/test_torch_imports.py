@@ -40,11 +40,17 @@ def test_every_module_is_found():
                  "repro_torch.runtime.serving", "repro_torch.convert", "repro_torch.device",
                  "repro_torch.models.encdec", "repro_torch.configs.whisper_large_v3",
                  "repro_torch.data.pipeline", "repro_torch.optim.adamw",
-                 "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer"):
+                 "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
+                 "repro_torch.sharding", "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.train",
+                 "repro_torch.core.vmem_demotion", "repro_torch.core.tpu_predictor"):
         assert name in MODULES, name
 
 
 def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
+    """Every module of the port (``sharding``, ``launch.*`` and ``core.*``
+    among them) imports without JAX and the reference, and none starts a
+    process group (``launch.mesh`` builds meshes only when called)."""
     code = (
         "import importlib, sys\n"
         f"names = {MODULES!r}\n"
@@ -54,6 +60,8 @@ def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "print('clean', len(names))\n"
     )
     out = subprocess.run(
@@ -67,7 +75,7 @@ def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
-    + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py"],
+    + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py", "tests/torch_mesh_ranks.py"],
 )
 def test_source_names_neither_jax_nor_the_reference_package(path):
     text = (ROOT / path).read_text()

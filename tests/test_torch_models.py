@@ -466,14 +466,19 @@ def test_convert_round_trip_and_checks():
 
 
 def test_families_and_options_of_later_slices_raise(tmp_path):
-    """Every family of the reference builds; what needs more than one device
-    (fsdp, remesh, restoring onto another layout) comes with the sharding
-    slice and raises; an unknown family raises; the MoE and M-RoPE options
-    build."""
-    from repro_torch.checkpoint import restore_tree
+    """Every family of the reference builds; fsdp without a mesh raises (there
+    is nothing to shard over), and on a one-rank ``gloo`` mesh fsdp, remesh
+    and restoring onto another layout work; an unknown family raises; the
+    MoE and M-RoPE options build."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.checkpoint import restore_tree, save_tree
     from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh, start_process_group
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.sharding import Sharding
 
     dense = tconfigs.reduced_config("stablelm_3b")
     audio = tconfigs.reduced_config("whisper_large_v3")
@@ -485,13 +490,27 @@ def test_families_and_options_of_later_slices_raise(tmp_path):
     with pytest.raises(ValueError, match="unknown family"):
         tconfigs.param_count(dataclasses.replace(dense, family="retnet"))
     data = DataConfig(vocab=dense.vocab, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(ValueError, match="fsdp shards"):
         Trainer(dense, AdamWConfig(), TrainConfig(fsdp=True), data, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        Trainer(dense, AdamWConfig(), TrainConfig(checkpoint_dir=str(tmp_path)), data,
-                device="cpu").remesh(None)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        restore_tree("unused", {}, shardings={})
+    start_process_group("cpu", 0, 1, str(tmp_path / "store"))
+    try:
+        mesh = make_host_mesh()
+        tr = Trainer(dense, AdamWConfig(), TrainConfig(fsdp=True, checkpoint_dir=str(tmp_path / "a")),
+                     data, device="cpu", mesh=mesh)
+        params, opt = tr.init_state()
+        assert isinstance(params["layers.wq"], DTensor) and isinstance(opt["mu"]["embed"], DTensor)
+        assert params["layers.wq"].placements == (Shard(1), Shard(2))   # embed on data, heads on model
+        plain = Trainer(dense, AdamWConfig(), TrainConfig(checkpoint_dir=str(tmp_path / "b")), data,
+                        device="cpu")
+        plain.remesh(mesh)
+        assert plain.param_shardings()["embed"].spec == ("model", None)
+        save_tree(str(tmp_path / "ck"), {"w": torch.arange(4.0)})
+        tree, _ = restore_tree(str(tmp_path / "ck"), {"w": torch.zeros(4)},
+                               shardings={"w": Sharding(mesh, ("data",))})
+        assert isinstance(tree["w"], DTensor)
+        assert torch.equal(tree["w"].full_tensor(), torch.arange(4.0))
+    finally:
+        dist.destroy_process_group()
     moe = dataclasses.replace(dense, family="moe",
                               moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
     assert "layers.we_gate" in transformer.param_shapes(moe)

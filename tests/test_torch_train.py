@@ -479,8 +479,9 @@ def test_checkpoint_shape_mismatch_rejected(tmp_path):
         restore_tree(path, {"w": torch.ones((5,))})
     with pytest.raises(KeyError):
         restore_tree(path, {"v": torch.ones((4,))})
-    with pytest.raises(NotImplementedError, match="A10"):
-        restore_tree(path, {"w": torch.ones((4,))}, shardings={"w": None})
+    # a None sharding places nothing: the leaf lands as ``like``'s does
+    out, _ = restore_tree(path, {"w": torch.ones((4,))}, shardings={"w": None})
+    assert torch.equal(out["w"], torch.ones(4, dtype=torch.float64))
 
 
 def _mixed_tree(seed=0):
@@ -681,18 +682,42 @@ def test_straggler_hook_fires(tmp_path):
 
 
 def test_what_needs_more_than_one_device_raises(tmp_path):
-    """fsdp, remesh and elastic restore come with the sharding slice (A10);
-    the trainer's entry point defaults to the GPU and never falls back."""
+    """fsdp needs a mesh and raises without one; on a one-rank ``gloo`` mesh
+    an fsdp run saves a checkpoint that restores without a mesh and, after
+    ``remesh``, onto the mesh again, bit for bit, and a restore onto given
+    shardings gives DTensors; the trainer's entry point defaults to the GPU
+    and never falls back."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh, start_process_group
+    from repro_torch.sharding import Sharding
+
     cfg = tconfigs.reduced_config("stablelm_3b")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="mesh"):
         Trainer(cfg, AdamWConfig(), TrainConfig(fsdp=True, checkpoint_dir=str(tmp_path)), dcfg,
                 device="cpu")
-    tr = Trainer(cfg, AdamWConfig(), TrainConfig(checkpoint_dir=str(tmp_path)), dcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tr.remesh(None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tr.ckpt.restore({"w": torch.zeros(1)}, step=0, shardings={"w": None})
+    start_process_group("cpu", 0, 1, str(tmp_path / "store"))
+    try:
+        mesh = make_host_mesh()
+        ck = str(tmp_path / "ck")
+        out = Trainer(cfg, AdamWConfig(), TrainConfig(steps=2, checkpoint_every=2, checkpoint_dir=ck,
+                                                      fsdp=True), dcfg, device="cpu", mesh=mesh).run()
+        tr = Trainer(cfg, AdamWConfig(), TrainConfig(checkpoint_dir=ck), dcfg, device="cpu")
+        for target in (None, mesh):
+            tr.remesh(target)
+            params, opt = tr.init_state()
+            opt, step = tr._restore(params, opt)
+            assert step == 2
+            for k, p in out["params"].items():
+                got = params[k].full_tensor() if target is not None else params[k]
+                assert torch.equal(got.detach(), p.full_tensor()), k
+        state, _ = tr.ckpt.restore({"params": {"final_ln": torch.zeros(cfg.d_model)}}, step=2,
+                                   shardings={"params": {"final_ln": Sharding(mesh, (None,))}})
+        assert isinstance(state["params"]["final_ln"], DTensor)
+    finally:
+        dist.destroy_process_group()
     assert [f.name for f in dataclasses.fields(TrainConfig)] == [
         "steps", "microbatches", "checkpoint_every", "checkpoint_dir", "keep_checkpoints",
         "log_every", "seed", "fsdp", "remat", "attn_impl", "straggler_zscore",
