@@ -12,67 +12,80 @@ path through the entry points a user calls.  Each phase prints one JSON line:
 1. ``device``            card name and power limit (``nvidia-smi``), torch / CUDA / nvcc versions
 2. ``build``             build seconds, the ``.so``, per-kernel registers / spills / shared
                          memory from ptxas, instantiations named readably
-3. ``kernel_vs_plain``   the attention kernel against its plain PyTorch version and the
+3. ``tune``              the RegDem translator on the host, before anything is served (as
+                         ``examples/torch_serve_batched.py`` runs it): each served model's
+                         kernel corpus (``repro_torch.data.corpus``) through
+                         ``TranslationService.tune`` over an ``ArtifactStore``, then a warm
+                         re-tune (all hits, no pass) and a fresh service on the same store
+                         (byte-identical); every corpus kernel's choice on maxwell and volta
+                         recomputed by the anchored search and held against
+                         ``tests/golden/corpus_choices.json``; each corpus kernel's
+                         extracted registers / threads / shared memory beside ptxas's
+                         registers, spills and static shared memory, and the plan's dynamic
+                         shared memory, for the CUDA instantiation that model's serving
+                         phase launches (a reading, no threshold); tune seconds a model and
+                         the simulator's native engine build seconds
+4. ``kernel_vs_plain``   the attention kernel against its plain PyTorch version and the
                          oracle over shapes, dtypes, masks and ragged lengths, and at the
                          heads of every served model (tolerance 2e-5 in fp32, 2e-2 in bf16,
                          absolute + relative)
-4. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
+5. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
                          oracle on both paths (fp32: fma, bf16: mma): the reference's shape
                          sweep, ragged lengths, an initial state, strided views, p-splits,
                          both full-width shapes, operands off 16-byte boundaries (bit for
                          bit against 16-byte copies), every plan against the default
                          (1e-5), and the inputs it must refuse (tolerance 2e-4 in fp32,
                          5e-2 in bf16)
-5. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
+6. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
                          weights from a seed): 16 requests through 8 slots; every attention
                          call must have gone through the kernel (launch count); logits are
                          re-derived through the chunked PyTorch path and compared
-6. ``serve_mamba2``      the same on full-width mamba2_370m (48 mamba layers): every prefill
+7. ``serve_mamba2``      the same on full-width mamba2_370m (48 mamba layers): every prefill
                          layer through the SSD kernel, decode in plain PyTorch; logits
                          against ``ssd_impl="chunked"``
-7. ``serve_zamba2``      the same on full-width zamba2_2_7b (54 mamba layers, a shared
+8. ``serve_zamba2``      the same on full-width zamba2_2_7b (54 mamba layers, a shared
                          attention block applied 9 times): both kernels on one path
-8. ``serve_qwen2_moe``   the same on full-width qwen2_moe_a2_7b (24 layers, 60 experts top-4
+9. ``serve_qwen2_moe``   the same on full-width qwen2_moe_a2_7b (24 layers, 60 experts top-4
                          and a gated shared expert; 26.7 GiB): prompts over 256 tokens on the
                          capacity path, the rest and every decode step on the exact one
-9. ``serve_qwen2_vl``    the same on full-width qwen2_vl_2b (28 layers, GQA 6, tied head),
+10. ``serve_qwen2_vl``   the same on full-width qwen2_vl_2b (28 layers, GQA 6, tied head),
                          then a vision-prefix prefill (256 patch embeddings, M-RoPE) through
                          ``Model.prefill`` and 8 decode steps
-10. ``serve_llama4``     the same on llama4_scout_17b_a16e at full width and 4 of its 48
+11. ``serve_llama4``     the same on llama4_scout_17b_a16e at full width and 4 of its 48
                          layers (one global period; 48 are 200.7 GiB), then one 8,448-token
                          prompt across the 8,192-token attention chunk and 4 decode steps
-11. ``serve_gemma3``,   ``Server.serve`` on full-width gemma3_1b (26 layers, heads of 256,
+12. ``serve_gemma3``,   ``Server.serve`` on full-width gemma3_1b (26 layers, heads of 256,
     ``serve_qwen2_7b``,  a 512-token window on 5 of 6 layers), qwen2_7b (28 layers, GQA 7)
     ``serve_granite``    and granite_8b (36 layers, GQA 4), as ``serve``, each with the
                          float32 check at full depth
-12. ``serve_whisper``    whisper_large_v3 at full width and depth (32 + 32 layers, heads of
+13. ``serve_whisper``    whisper_large_v3 at full width and depth (32 + 32 layers, heads of
                          64): 8 slots of 1,500 seeded frame embeddings through
                          ``Model.prefill`` (the encoder, on the kernel's mma path), then 32
                          greedy ``decode_step``s (self- and cross-attention, both on the
                          split path); launches, logits against ``attn_impl="chunked"``, the
                          float32 check at 2 layers
-13. ``train``            ``Trainer`` on the card, no kernel (the kernels are forward only):
+14. ``train``            ``Trainer`` on the card, no kernel (the kernels are forward only):
                          (a) stablelm_3b at full width and depth, 8 steps at 8 x 512 tokens,
                          the loss must fall; (b) at full width and 2 layers, a run with a
                          failure injected at step 5 restarts from its step-4 checkpoint and
                          must end bit for bit where an uninterrupted run ends; (c) float32
                          gradients through ``"chunked"`` against ``"xla"`` within 1e-4
-14. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
+15. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
                          ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess at
                          full width and depth beside the train phase's un-meshed run; float32
                          at 2 layers, meshed against un-meshed within 1e-6 (bit for bit
                          expected, else the first op that differs is named); a checkpoint
                          saved under fsdp restored after ``remesh`` bit for bit; no kernel
-15. ``dryrun``           ``python -m repro_torch.launch.dryrun`` on meta tensors (processes of
+16. ``dryrun``           ``python -m repro_torch.launch.dryrun`` on meta tensors (processes of
                          its own, started at train_mesh): every stablelm_3b cell on the
                          one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k on 16 x 16;
                          each record's status, flops, bytes, memory, collectives, errors
-16. ``select``           the variant selector on the card (the paper's Fig. 9 contract):
+17. ``select``           the variant selector on the card (the paper's Fig. 9 contract):
                          stablelm_3b at 8 x 512, remat {none, dots, full} x microbatches
                          {1, 4}, each dry-run and costed against the card's memory; only the
                          variants predicted to fit run (1 + 3 steps, measured peak memory);
                          fails if one of them runs out of memory or the chosen one does not run
-17. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
+18. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
                          the serving paths, error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
@@ -81,7 +94,7 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-18. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
+19. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after, prints its initialisation and serving peaks of device memory
@@ -131,8 +144,8 @@ from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
-PHASES = ["device", "build", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train", "train_mesh",
-          "dryrun", "select", "kernels", "serve_throughput"]
+PHASES = ["device", "build", "tune", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train",
+          "train_mesh", "dryrun", "select", "kernels", "serve_throughput"]
 # not run by default: --phases serve,...,serve_whisper,profile; --phases device,dryrun_all
 EXTRA_PHASES = ["profile", "dryrun_all"]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -442,6 +455,165 @@ def phase_build(ctx):
     require(all(ssd_by_path[p]["instantiations"] == per_path for p in ssd.PATHS),
             f"the build's SSD instantiations by path: "
             f"{ {p: v['instantiations'] for p, v in ssd_by_path.items()} }")
+
+
+#: the model each serving phase drives
+SERVED = {"serve": "stablelm_3b", "serve_mamba2": "mamba2_370m", "serve_zamba2": "zamba2_2_7b",
+          "serve_qwen2_moe": "qwen2_moe_a2_7b", "serve_qwen2_vl": "qwen2_vl_2b",
+          "serve_llama4": "llama4_scout_17b_a16e", "serve_gemma3": "gemma3_1b",
+          "serve_qwen2_7b": "qwen2_7b", "serve_granite": "granite_8b",
+          "serve_whisper": "whisper_large_v3"}
+#: the search of ``examples/torch_serve_batched.py``: one cliff target per
+#: architecture, the top beam survivors only
+TUNE = dict(max_targets=1, beam_width=2, top_k=1)
+GOLDEN_CHOICES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                              "corpus_choices.json")
+
+
+def serving_instantiations(cfg):
+    """Corpus kernel kind -> the CUDA instantiation the model's serving phase
+    launches for it, with its plan's threads and dynamic shared memory: the
+    wrappers' own choosers at the phase's bf16 shapes (a prefill of one prompt
+    of up to 512 tokens, whisper's 1,500 encoder frames; a decode step of 8
+    slots against the 1,024-position cache, whisper's cross-attention over its
+    frames).  The SSD scan's decode step runs no kernel."""
+    out = {}
+    bf16 = torch.bfloat16
+    if cfg.family != "ssm":
+        dh, groups = cfg.dh, cfg.n_heads // cfg.n_kv_heads
+        audio = cfg.family == "audio"
+        dhc = 64 if dh <= 64 else 80 if dh == 80 else 128 if dh <= 128 else 256
+        skv = WHISPER["frames"] if audio else 512
+        plan = fa.choose_tile(skv, skv, dh, dtype=bf16, groups=groups,
+                              batch_kv_heads=cfg.n_kv_heads)
+        require(plan.path == "mma", f"{cfg.name}: prefill plan {plan}")
+        out["prefill.attn"] = (
+            f"flash_attention<mma, bf16, Dh<={dhc}, BQ=64, BKV={plan.bkv}, "
+            f"Q in {'registers' if dhc <= 128 else 'shared memory'}>",
+            plan.threads, fa.plan_smem_bytes(plan, dh, skv))
+        skv = WHISPER["frames"] if audio else SERVE["max_len"]
+        plan = fa.choose_tile(1, skv, dh, dtype=bf16, groups=groups,
+                              batch_kv_heads=SERVE["batch_slots"] * cfg.n_kv_heads)
+        require(plan.path == "split", f"{cfg.name}: decode plan {plan}")
+        out["decode.attn"] = (f"flash_attention<split, bf16, Dh<={dhc}, rows<={plan.bq}>",
+                              plan.threads, fa.plan_smem_bytes(plan, dh, skv))
+    if cfg.family in ("ssm", "hybrid"):
+        plan = ssd.choose_plan(1, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, bf16)
+        out["prefill.ssd"] = (f"mamba2_ssd<{plan.path}, bf16, N={cfg.ssm_state}, "
+                              f"p_block={plan.p_block}>", plan.threads, plan.smem_bytes)
+        out["decode.ssd"] = None
+    return out
+
+
+def phase_tune(ctx):
+    """Tune each served model's kernel corpus on the host, then read the
+    extracted register / shared-memory profile beside ptxas's numbers."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from repro_torch.core import _native
+    from repro_torch.core.anchored import tune_profile
+    from repro_torch.core.artifacts import ArtifactStore
+    from repro_torch.core.passes import PIPELINE_COUNTERS
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.core.translator import TranslationService
+    from repro_torch.data.corpus import CORPUS_BENCHMARKS, corpus_container, model_corpus_names
+
+    # the simulator's issue loop, compiled from the port's own C file
+    with open(_native._SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    so = os.path.join(_native._cache_dir(), f"sim_engine_{digest}.so")
+    reused = os.path.exists(so)
+    t0 = time.perf_counter()
+    engine = _native.engine()
+    native_s = time.perf_counter() - t0
+    require(engine is not None, "the simulator's native engine did not build (no C compiler?)")
+
+    with open(GOLDEN_CHOICES) as fh:
+        golden = json.load(fh)
+    served = [p for p in SERVING if p in ctx["wanted"]] or SERVING
+    models = [SERVED[p] for p in served]
+    resources = ctx.get("resources")
+    config = SearchConfig(**TUNE)
+    per_model, mismatches = {}, []
+    for model in models:
+        names = model_corpus_names(model)
+        data = corpus_container(model)
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        ctx.setdefault("tmp_dirs", []).append(store)
+        svc = TranslationService(store=ArtifactStore(store))
+        t0 = time.perf_counter()
+        tuned, rep = svc.tune(data, config)
+        tune_s = time.perf_counter() - t0
+        require(rep.cache_misses == len(names) and rep.cache_hits == 0,
+                f"{model}: a cold tune searched {rep.cache_misses} of {len(names)} kernels")
+        passes = dict(PIPELINE_COUNTERS)
+        t0 = time.perf_counter()
+        again, rep2 = svc.tune(data, config)
+        warm_s = time.perf_counter() - t0
+        require(rep2.cache_hits == len(names) and rep2.cache_misses == 0,
+                f"{model}: a warm re-tune had {rep2.cache_misses} misses")
+        require(dict(PIPELINE_COUNTERS) == passes, f"{model}: a warm re-tune ran passes")
+        restart, rep3 = TranslationService(store=ArtifactStore(store)).tune(data, config)
+        require(restart == again == tuned, f"{model}: tuned bytes differ after a restart")
+        require(rep3.cache_hits == len(names), f"{model}: a restart missed the store")
+        shutil.rmtree(store, ignore_errors=True)
+
+        # the golden choices: each kernel, each architecture, by the anchored search
+        t0 = time.perf_counter()
+        choices = {}
+        for name in names:
+            for arch in ("maxwell", "volta"):
+                row = tune_profile(CORPUS_BENCHMARKS[name], arch)
+                choices[f"{name}/{arch}"] = row["chosen"]
+                if (row["chosen"] != golden[name][arch]
+                        or row["cycles_chosen"] > row["cycles_fixed"]):
+                    mismatches.append({"kernel": name, "arch": arch, "chosen": row["chosen"],
+                                       "golden": golden[name][arch],
+                                       "cycles_chosen": row["cycles_chosen"],
+                                       "cycles_fixed": row["cycles_fixed"]})
+        golden_s = time.perf_counter() - t0
+
+        cuda = serving_instantiations(get_config(model))
+        kernels = []
+        for r in rep.reports:
+            prof = CORPUS_BENCHMARKS[r.kernel_name]
+            entry = {"kernel": r.kernel_name, "chosen": r.chosen,
+                     "speedup_vs_nvcc": round(r.search.speedup, 4),
+                     "extracted": {"registers": prof.target_regs,
+                                   "threads_per_block": prof.threads_per_block,
+                                   "shared_bytes": prof.shared_size,
+                                   "regdem_target": prof.regdem_target}}
+            inst = cuda[r.kernel_name.split(".", 1)[1]]
+            if inst is None:
+                entry["measured"] = None
+                entry["note"] = "the port's decode step runs no SSD kernel"
+            else:
+                label, threads, dyn = inst
+                entry["measured"] = {"instantiation": label, "threads_per_block": threads,
+                                     "dynamic_smem_bytes": dyn}
+                if resources is not None:
+                    require(label in resources, f"{model}: {label} is not in the build")
+                    rec = resources[label]
+                    entry["measured"].update(
+                        registers=rec["registers"],
+                        spill_bytes=rec["spill_store_bytes"] + rec["spill_load_bytes"],
+                        static_smem_bytes=rec["static_smem_bytes"])
+            kernels.append(entry)
+        per_model[model] = {"kernels": len(names), "tune_s": round(tune_s, 4),
+                            "warm_retune_s": round(warm_s, 4), "warm_hits": rep2.cache_hits,
+                            "golden_recompute_s": round(golden_s, 4), "choices": choices,
+                            "corpus": kernels}
+    emit("tune", native_engine={"seconds": round(native_s, 4), "reused": reused,
+                                "so": os.path.relpath(so)},
+         search=TUNE, models=per_model,
+         golden_cells=sum(len(m["choices"]) for m in per_model.values()),
+         golden_mismatches=mismatches,
+         measured_from="ptxas records of the build phase" if resources is not None
+         else "not measured: the build phase did not run")
+    require(not mismatches, f"corpus choices differ from {os.path.relpath(GOLDEN_CHOICES)}: "
+            f"{mismatches}")
 
 
 ATTN_SHAPES = [
@@ -2546,7 +2718,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 comparisons are in full fp32
     t_run = time.perf_counter()
-    ctx = {"profile": "profile" in wanted}
+    ctx = {"profile": "profile" in wanted, "wanted": wanted}
     phase_seconds = {}
     try:
         for phase in PHASES + EXTRA_PHASES:

@@ -9,8 +9,12 @@ asks for the CPU (``device="cpu"``); with no CUDA device the default raises.
 Ported so far: every family's serving path (``runtime.Server`` ->
 ``models.Model`` -> ``models.transformer`` / ``mamba2`` / ``hybrid`` /
 ``encdec`` -> ``kernels.ops`` -> the hand-written CUDA kernels in
-``kernels/csrc/``), and training on one device (``runtime.Trainer``,
-``optim``, ``checkpoint``, ``data``).
+``kernels/csrc/``), training on one device and on a mesh (``runtime.Trainer``,
+``optim``, ``checkpoint``, ``data``, ``sharding``, ``launch``), and the
+framework-free half: the RegDem translator (``core``, ``binary``, ``arch``,
+``obs.stallprof``, ``testing``, ``util``, ``runtime.daemon``) and the kernel
+corpus it tunes before serving (``data.corpus``), each a copy of the
+reference module.
 """
 
 from .device import resolve_device

@@ -6,19 +6,22 @@ One process-wide subsystem, near-zero overhead when disabled:
                                     attrs, parent), pool-worker export/merge;
 * :mod:`repro_torch.obs.metrics`    counters / gauges / histograms (p50/p99)
                                     in a snapshot-able registry;
+* :mod:`repro_torch.obs.stallprof`  per-instruction, per-reason stall
+                                    attribution from the event-driven SASS
+                                    simulator (books balance exactly against
+                                    ``SimResult.issue_stalls``);
 * :mod:`repro_torch.obs.export`     JSONL event log + Chrome trace-format
                                     (``chrome://tracing`` / Perfetto) exporters.
 
-It mirrors ``repro.obs`` file for file (the per-instruction stall profiler,
-which belongs to the SASS simulator, is not part of this package yet) and
-imports nothing of it, so the port runs where the JAX package is absent.
+It mirrors ``repro.obs`` file for file and imports nothing of it, so the port
+runs where the JAX package is absent.
 
 Typical use::
 
     from repro_torch import obs
 
     obs.enable()
-    ... serve requests ...
+    ... serve requests / run translations ...
     obs.write_trace("trace.json")          # load in Perfetto
     print(obs.metrics().snapshot())
 
@@ -28,6 +31,7 @@ telemetry disabled that is one attribute check returning a shared no-op.
 
 from .export import chrome_trace, to_jsonl, write_trace
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, hit_rate
+from .stallprof import REASONS, InstrStall, StallProfile, build_profile
 from .telemetry import (
     DEFAULT_TELEMETRY,
     NULL_SPAN,
@@ -52,6 +56,10 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "hit_rate",
+    "REASONS",
+    "InstrStall",
+    "StallProfile",
+    "build_profile",
     "DEFAULT_TELEMETRY",
     "NULL_SPAN",
     "Span",

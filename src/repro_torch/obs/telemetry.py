@@ -2,7 +2,8 @@
 
 One process-wide :class:`Telemetry` instance records *spans* — named,
 attributed, parent-linked wall-time intervals — across every subsystem
-(here: the serving loop).  The port's own copy of the reference package's
+(the serving loop, pass pipelines, translations, search stages, simulator
+runs).  The port's own copy of the reference package's
 telemetry.  The design constraints, in order:
 
 1. **Disabled is free.**  ``span()`` with telemetry off performs one

@@ -47,6 +47,64 @@ def test_every_module_is_found():
         assert name in MODULES, name
 
 
+#: the framework-free half (the RegDem translator and what it stands on) and
+#: the kernel corpus, each the port's own copy of the reference module
+FRAMEWORK_FREE = (
+    "repro_torch.util", "repro_torch.testing", "repro_torch.testing.faults",
+    "repro_torch.obs.stallprof",
+    "repro_torch.core.isa", "repro_torch.core.occupancy", "repro_torch.core.sched",
+    "repro_torch.arch", "repro_torch.arch.registry", "repro_torch.arch.maxwell",
+    "repro_torch.arch.volta",
+    "repro_torch.binary", "repro_torch.binary.ctrlwords", "repro_torch.binary.archcodec",
+    "repro_torch.binary.encoding", "repro_torch.binary.container",
+    "repro_torch.binary.overlay", "repro_torch.binary.roundtrip",
+    "repro_torch.core.kernelgen", "repro_torch.core.candidates",
+    "repro_torch.core.strategies", "repro_torch.core.spillspace",
+    "repro_torch.core.compaction", "repro_torch.core.postopt", "repro_torch.core.passes",
+    "repro_torch.core.regdem", "repro_torch.core.variants", "repro_torch.core._native",
+    "repro_torch.core.simulator", "repro_torch.core.simcache",
+    "repro_torch.core.predictor", "repro_torch.core.workerpool",
+    "repro_torch.core.search", "repro_torch.core.artifacts",
+    "repro_torch.core.translator", "repro_torch.core.anchored",
+    "repro_torch.runtime.daemon", "repro_torch.data.corpus",
+)
+
+
+@pytest.mark.parametrize("name", FRAMEWORK_FREE)
+def test_every_framework_free_module_is_found(name):
+    assert name in MODULES, name
+
+
+def test_the_native_engine_source_is_the_reference_byte_for_byte():
+    """The port's simulator engine is its own copy of the C file (built into
+    its own shared object), byte for byte the reference's."""
+    port = ROOT / "src" / "repro_torch" / "core" / "_sim_engine.c"
+    assert port.read_bytes() == (ROOT / "src" / "repro" / "core" / "_sim_engine.c").read_bytes()
+
+
+def test_tuning_a_corpus_loads_no_jax_and_nothing_of_the_reference():
+    """The kernel corpus keeps its own copy of the reference kernel's TPU
+    tiler: extracting a model's corpus and building its container reaches
+    no JAX (the reference's corpus imports its Pallas kernel file)."""
+    code = (
+        "import sys\n"
+        "from repro_torch.data.corpus import corpus_container, model_corpus_names\n"
+        "from repro_torch.binary import loads_many\n"
+        "data = corpus_container('zamba2_2_7b')\n"
+        "assert len(loads_many(data)) == len(model_corpus_names('zamba2_2_7b')) == 4\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["clean"]
+
+
 def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
     """Every module of the port (``sharding``, ``launch.*`` and ``core.*``
     among them) imports without JAX and the reference, and none starts a
@@ -75,7 +133,8 @@ def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
-    + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py", "tests/torch_mesh_ranks.py"],
+    + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py", "tests/torch_mesh_ranks.py",
+       "examples/torch_serve_batched.py"],
 )
 def test_source_names_neither_jax_nor_the_reference_package(path):
     text = (ROOT / path).read_text()
@@ -91,7 +150,8 @@ def test_cuda_sources_are_package_data():
         assert "torch/extension.h" not in text and 'extern "C"' in text, src.name
         # hand-written: no library of finished kernels inside the kernels
         assert not re.search(r"cublas|cudnn|cutlass|at::|torch::", text, re.I), src.name
-    assert 'repro_torch = ["kernels/csrc/*"]' in (ROOT / "pyproject.toml").read_text()
+    assert 'repro_torch = ["kernels/csrc/*", "core/_sim_engine.c"]' in (
+        ROOT / "pyproject.toml").read_text()
 
 
 def test_entry_points_default_to_the_gpu_and_never_fall_back():
