@@ -26,9 +26,10 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          phase launches (a reading, no threshold); tune seconds a model and
                          the simulator's native engine build seconds
 4. ``kernel_vs_plain``   the attention kernel against its plain PyTorch version and the
-                         oracle over shapes, dtypes, masks and ragged lengths, and at the
-                         heads of every served model (tolerance 2e-5 in fp32, 2e-2 in bf16,
-                         absolute + relative)
+                         oracle over shapes, dtypes, masks and ragged lengths, at the
+                         heads of every served model, and at the heads a rank of a 2- or
+                         4-wide model axis computes where those differ (``local_heads``;
+                         tolerance 2e-5 in fp32, 2e-2 in bf16, absolute + relative)
 5. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
                          oracle on both paths (fp32: fma, bf16: mma): the reference's shape
                          sweep, ragged lengths, an initial state, strided views, p-splits,
@@ -78,8 +79,12 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          saved under fsdp restored after ``remesh`` bit for bit; no kernel
 16. ``dryrun``           ``python -m repro_torch.launch.dryrun`` on meta tensors (processes of
                          its own, started at train_mesh): every stablelm_3b cell on the
-                         one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k on 16 x 16;
-                         each record's status, flops, bytes, memory, collectives, errors
+                         one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k and
+                         stablelm_3b train_4k on 16 x 16; each record's status, flops,
+                         bytes, memory, collectives, errors; each 16 x 16 cell's per-device
+                         flops within 1 % of the count from its shapes (a rank's share of
+                         the products the model axis splits), printed with its wire and
+                         temporary GiB beside the gathered layout's (``split_16x16``)
 17. ``select``           the variant selector on the card (the paper's Fig. 9 contract):
                          stablelm_3b at 8 x 512, remat {none, dots, full} x microbatches
                          {1, 4}, each dry-run and costed against the card's memory; only the
@@ -626,6 +631,59 @@ ATTN_SHAPES = [
 ]
 
 
+#: the transformer models whose attention a model axis may split by heads
+SPLIT_MODELS = ("stablelm_3b", "gemma3_1b", "qwen2_7b", "granite_8b", "qwen2_moe_a2_7b",
+                "qwen2_vl_2b", "llama4_scout_17b_a16e")
+
+
+def local_head_shapes():
+    """``(query heads, K / V heads, head width) -> ["arch/width", ...]``: the
+    heads a rank of a 2- or 4-wide model axis computes where the split is by
+    whole heads (``n_heads`` divides the axis, and the K / V heads they read
+    are ``repro_torch.sharding.read_range``'s), but for the full models' own
+    shapes."""
+    from repro_torch.sharding import read_range
+
+    configs = [get_config(arch) for arch in SPLIT_MODELS]
+    full = {(c.n_heads, c.n_kv_heads, c.dh) for c in configs}
+    out = {}
+    for arch, cfg in zip(SPLIT_MODELS, configs):
+        for width in (2, 4):
+            heads = cfg.n_heads // width
+            kv = read_range((0, heads), cfg.n_heads // cfg.n_kv_heads)
+            if cfg.n_heads % width == 0 and kv is not None:
+                shape = (heads, kv[1] - kv[0], cfg.dh)
+                if shape not in full:
+                    out.setdefault(shape, []).append(f"{arch}/{width}")
+    return out
+
+
+def local_head_times(local):
+    """bf16 times of the kernel at each of a rank's head shapes (prefill:
+    a 512-token prompt from position 0 in a 1,024-slot cache; decode: 8
+    serving slots): device ms from CUDA graphs, eager ms, the plain
+    version's eager ms, and the card's bound."""
+    rows = []
+    for (hq, hkv, dh), where in local.items():
+        for step, (B, Sq, qpos) in (("prefill", (1, 512, np.arange(512)[None])),
+                                    ("decode", (8, 1, serve_lengths()[:, None] - 1))):
+            q, k, v, qp, kp = make_case(B, Sq, 1024, hq, hkv, dh, torch.bfloat16,
+                                        q_positions=qpos)
+
+            def run_kernel():
+                return ops.flash_attention(q, k, v, qp, kp)
+
+            def run_plain():
+                return fa.flash_attention_plain(q, k, v, qp, kp)
+
+            b = bound(q, k, v, qp, kp)
+            rows.append({"heads": f"{hq}/{hkv}", "Dh": dh, "step": step, "models": where,
+                         "device_ms": min(graph_ms(run_kernel) for _ in range(2)),
+                         "ms": time_ms(run_kernel), "plain_ms": time_ms(run_plain, 1, 5),
+                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+    return rows
+
+
 def serve_lengths(batch=8):
     """Decode slot lengths of the serving phases: the smoke prompts (64-512
     tokens) plus up to 32 new tokens, drawn from seed 1."""
@@ -703,6 +761,20 @@ def phase_kernel_vs_plain(ctx):
                        make_case(1, 512, 1024, hq, hkv, 128, dtype,
                                  q_positions=np.arange(512)[None]),
                        dtype, failures, results, want_path="mma" if dtype == bf16 else "fma")
+    # a rank's heads on a 2- or 4-wide model axis: a 512-token prefill on mma
+    # and a decode step of 8 slots on split (fma in fp32)
+    local = local_head_shapes()
+    for (hq, hkv, dh), where in local.items():
+        for dtype in both:
+            bf = dtype == bf16
+            check_case(f"local heads {hq}/{hkv}, Dh {dh}, prefill ({', '.join(where)})",
+                       make_case(1, 512, 1024, hq, hkv, dh, dtype,
+                                 q_positions=np.arange(512)[None]),
+                       dtype, failures, results, want_path="mma" if bf else "fma")
+            check_case(f"local heads {hq}/{hkv}, Dh {dh}, decode ({', '.join(where)})",
+                       make_case(8, 1, 1024, hq, hkv, dh, dtype,
+                                 q_positions=serve_lengths()[:, None] - 1),
+                       dtype, failures, results, want_path="split" if bf else "fma")
     check_case("chunk 8192, an 8,448-token prompt, 40/8",
                make_case(1, 8448, 8448, 40, 8, 128, bf16, q_positions=np.arange(8448)[None]),
                bf16, failures, results, want_path="mma", chunk_attn=8192, oracle_kv_heads=1)
@@ -808,6 +880,8 @@ def phase_kernel_vs_plain(ctx):
     paths = {p: sum(r.get("path") == p for r in results) for p in fa.PATHS}
     require(all(paths.values()), f"a path was never checked: {paths}")
     emit("kernel_vs_plain", cases=len(results), failed=failures, cases_by_path=paths,
+         local_heads={f"{hq}/{hkv}, Dh {dh}": where for (hq, hkv, dh), where in local.items()},
+         local_heads_timed=local_head_times(local) if not failures else "not measured",
          max_err_fp32=max(r.get("err_vs_oracle", 0) for r in results if r["dtype"] == "float32"),
          max_err_bf16=max(r.get("err_vs_oracle", 0) for r in results if r["dtype"] == "bfloat16"),
          tolerance={"float32": 2e-5, "bfloat16": 2e-2}, results=results)
@@ -1823,12 +1897,15 @@ TRAIN_MESH = dict(check_layers=2, check_steps=3, elastic_layers=2, elastic_steps
 #: the dryrun phase's sweeps, one process each: every stablelm_3b cell on the
 #: card's one-rank mesh; qwen2_7b and llama4 (its 16 experts take expert
 #: parallelism; both have too few KV heads for the model axis, so their
-#: caches shard the sequence) on the 16 x 16 production mesh
+#: caches shard the sequence, and heads that 16 does not divide, so their
+#: attention is whole) and stablelm_3b train_4k (every product split) on the
+#: 16 x 16 production mesh
 DRYRUN = {
     "stablelm_1gpu": ["--arch", "stablelm_3b", "--mesh", "1gpu"],
     "qwen2_7b_16x16": ["--arch", "qwen2_7b", "--shape", "train_4k,decode_32k", "--mesh", "single"],
     "llama4_16x16": ["--arch", "llama4_scout_17b_a16e", "--shape", "train_4k,decode_32k",
                      "--mesh", "single"],
+    "stablelm_16x16": ["--arch", "stablelm_3b", "--shape", "train_4k", "--mesh", "single"],
 }
 #: the select phase's cell (the train phase's 8 x 512 tokens) and variants
 SELECT = dict(remats=("none", "dots", "full"), microbatches=(1, 4), warmup=1, timed=3)
@@ -2060,15 +2137,103 @@ def _gib(x):
     return round(x / 2**30, 3)
 
 
+#: per-device flops, wire GiB and temporary GiB of the 16 x 16 cells in the
+#: gathered layout, before the model axis split products (every rank gathered
+#: each layer's weights and computed whole layers), as PERF.md section 6
+#: records them: the dry-run of the commit before the split, on the card's
+#: machine
+GATHERED_16X16 = {
+    "qwen2_7b/train_4k": {"flops": 3.888697749536768e15, "wire_gib": 41.32, "temp_gib": 98.741},
+    "qwen2_7b/decode_32k": {"flops": 2.18351271936e11, "wire_gib": 26.423, "temp_gib": 20.125},
+    "llama4_scout_17b_a16e/train_4k": {"flops": 1.00442105184256e16, "wire_gib": 587.644,
+                                       "temp_gib": 151.92},
+    "llama4_scout_17b_a16e/decode_32k": {"flops": 1.96551901184e12, "wire_gib": 233.183,
+                                         "temp_gib": 69.0},
+    "stablelm_3b/train_4k": {"flops": 1.67555264151552e15, "wire_gib": 15.197,
+                             "temp_gib": 98.982},
+}
+
+
+def shape_flops(cfg, kind, seq_len, global_batch, data=16, model=16):
+    """Per-device matrix-product flops of a dry-run cell (``train`` under
+    remat ``full``, or ``decode``) on a ``data x model`` mesh, from the
+    shapes alone: a device's rows of the batch and, on the model axis, a
+    ``model``-th of each product the rules split (the heads where ``n_heads``
+    divides the axis and a rank's query heads read their own share of the K
+    / V heads or one K / V head, ``ff``, the experts or ``ff_expert``, the
+    vocabulary), the rest whole.  The chunked attention pads the keys to
+    1,024; the MoE runs ``C`` slots an expert over 256 tokens, every token
+    (then a weighted sum over the experts) up to 256.  Under remat ``full``
+    each layer's products count 4 times (forward, recomputation, both
+    operands' gradients) but the block's last product, whose output nothing
+    in backward reads, so that the recomputation stops before it (``w_down``,
+    or an ungated shared expert's ``ws_down``): 3 times; the head 4 times."""
+    M, B = model, global_batch // data
+    D, Dh, L = cfg.d_model, cfg.dh, cfg.n_layers
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def part(n):
+        return n // M if n % M == 0 else n
+
+    hq, hkv = Hq, Hkv
+    if Hq % M == 0 and (Hkv % M == 0 or (Hq // Hkv) % (Hq // M) == 0):
+        hq, hkv = Hq // M, max(Hkv // M, 1)
+    S = 1 if kind == "decode" else seq_len
+    keys = -(-seq_len // 1024) * 1024
+    T = B * S
+    layer = 2 * T * D * (hq + 2 * hkv) * Dh + 2 * T * hq * Dh * D + 4 * B * hq * S * keys * Dh
+    if cfg.moe is None:
+        F = part(cfg.d_ff)
+        layer += 6 * T * D * F
+        last = 2 * T * F * D
+    else:
+        m, last = cfg.moe, 0
+        E = m.n_experts
+        local, fe = (E // M, m.d_ff_expert) if E % M == 0 else (E, part(m.d_ff_expert))
+        if T <= transformer.DENSE_PATH_MAX_TOKENS:
+            # the weighted sum is a batched product but over one expert
+            # (einsum then multiplies)
+            rows, combine = T, 2 * T * local * D if local > 1 else 0
+        else:
+            rows, combine = int(np.ceil(T * m.top_k / E * m.capacity_factor)), 0
+        layer += 2 * T * D * E + 6 * local * rows * D * fe + combine
+        if m.n_shared:
+            fs = part(m.d_ff_shared)
+            layer += 6 * T * D * fs + (2 * T * D if m.shared_gate else 0)
+            last = 0 if m.shared_gate else 2 * T * fs * D
+    head = 2 * T * D * part(cfg.vocab)
+    if kind == "decode":
+        return L * layer + head
+    return 4 * L * layer - L * last + 4 * head
+
+
 def phase_dryrun(ctx):
     """``python -m repro_torch.launch.dryrun`` on meta tensors, in processes
     of their own (started by :func:`start_dryruns`): every stablelm_3b cell on
-    the card's one-rank mesh, qwen2_7b and llama4 on 16 x 16.  Each record's
-    status, flops, bytes, per-device memory and collective bytes; a record
-    that failed is printed with its error."""
-    summary = {}
+    the card's one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k and
+    stablelm_3b train_4k on 16 x 16.  Each record's status, flops, bytes,
+    per-device memory and collective bytes; a record that failed is printed
+    with its error.  Each 16 x 16 cell must run, and its flops must be
+    within 1 % of :func:`shape_flops`; ``split_16x16`` prints its per-device
+    flops, wire and temporary GiB beside the gathered layout's
+    (:data:`GATHERED_16X16`)."""
+    summary, split, off = {}, {}, []
     for name in DRYRUN:
         records, waited = dryrun_records(ctx, name)
+        for r in records if name.endswith("16x16") else ():
+            key = f"{r['arch']}/{r['shape']}"
+            if r["status"] != "ok":
+                off.append(f"{key}: {r['status']} {r.get('error', '')}")
+                continue
+            want = shape_flops(get_config(r["arch"]), r["kind"], r["seq_len"], r["global_batch"])
+            rel = abs(r["flops"] - want) / want
+            split[key] = {"flops": r["flops"], "shape_flops": want, "rel_err": rel,
+                          "wire_gib": _gib(r["collectives"]["wire_bytes"]),
+                          "temp_gib": _gib(r["memory"]["temp_bytes"]),
+                          "collective_counts": r["collectives"]["counts"],
+                          "gathered_layout": GATHERED_16X16.get(key)}
+            if rel > 0.01:
+                off.append(f"{key}: flops {r['flops']:.6e}, shapes give {want:.6e}")
         rows = []
         for r in records:
             row = {k: r[k] for k in ("arch", "shape", "mesh", "kind", "status")}
@@ -2088,9 +2253,10 @@ def phase_dryrun(ctx):
         summary[name] = {"args": DRYRUN[name], "ended_after_s": waited, "records": rows}
         require(all(r["status"] in ("ok", "skipped", "error") for r in records), name)
     require(len(summary["stablelm_1gpu"]["records"]) == 4, "dryrun: stablelm_3b has 4 cells")
-    emit("dryrun", card=ctx.get("card"), sweeps=summary,
+    emit("dryrun", card=ctx.get("card"), sweeps=summary, split_16x16=split,
          errors=[f"{r['arch']}/{r['shape']}/{r['mesh']}: {r['error']}" for s in summary.values()
                  for r in s["records"] if r["status"] == "error"])
+    require(not off and len(split) == 5, f"dryrun: 16 x 16 cells off their shapes' flops: {off}")
 
 
 def phase_select(ctx):

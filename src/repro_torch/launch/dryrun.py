@@ -7,9 +7,13 @@ tensors (shapes and dtypes, no storage, no arithmetic), and counts what it
 dispatches:
 
 * ``flops`` — **per device**: ``FlopCounterMode`` over rank 0's local
-  tensors.  The port computes on local tensors (each layer's weights
-  gathered where it reads them, :mod:`repro_torch.sharding`), so this is
-  the work of one device; counted on DTensors it would be the global figure;
+  tensors.  The port computes on local tensors: a rank's rows of the batch
+  and, on the ``model`` axis, its share of each product the rules shard
+  there (whole heads, ``ff``, its experts or its part of ``ff_expert``, its
+  rows of the vocabulary; :mod:`repro_torch.sharding`), the rest whole
+  (attention where ``n_heads`` does not divide the axis, the router).  So
+  this is the work of one device; counted on DTensors it would be the
+  global figure;
 * ``bytes_accessed`` — the input and output bytes of every aten op on the
   local tensors (views excluded: they move nothing).  In eager PyTorch every
   op reads and writes device memory, so this is the un-fused step's traffic;
@@ -24,14 +28,22 @@ dispatches:
 * ``collectives`` — ``bytes_by_type``, ``counts``, ``total_bytes`` and
   ``wire_bytes`` of the functional collectives the step issues
   (``torch.ops._c10d_functional``), read from each one's tensors, with the
-  reference's ring formulas.  On the ``1gpu`` mesh every axis is 1 wide, no
-  collective is issued, and every figure is 0.
+  reference's ring formulas: the gathers of the weights over the data axes
+  (fsdp) and, over ``model``, of the leaves whose product stays whole; the
+  all-reduces that sum a split region's parts (activations forward, their
+  gradients backward); the gradients' reduce-scatters over the data axes.
+  On the ``1gpu`` mesh every axis is 1 wide, no collective is issued, and
+  every figure is 0.
 
 The meshes: ``single`` (16x16), ``multi`` (2x16x16), ``both``, and ``1gpu``,
 the card's own one-rank mesh.  All are built over a fake process group
 (:func:`repro_torch.launch.mesh.fake_mesh`), so the dry-run runs in a process
 of its own.  Prefill and decode cells use ``attn_impl="chunked"``, as the
-reference does: the CUDA kernels cannot run on ``meta``.  A cell that fails is
+reference does: the CUDA kernels cannot run on ``meta``.  A decode cell's
+cache comes in the layout of :func:`repro_torch.launch.specs.state_shardings`;
+where the plan splits the heads a rank keeps (or, from a cache whose
+sequence the rules shard, cuts) the K / V heads it computes, and its greedy
+token is the argmax across the vocabulary's shards.  A cell that fails is
 recorded with ``status: "error"`` and its message; the sweep goes on.
 
 Usage::
@@ -60,13 +72,13 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, ShapeCell, get_config, shape_cells
-from ..models import Model
+from ..models import Model, split_products
 from ..models.common import unrolled_scans
 from ..optim import AdamWConfig
 from ..runtime.trainer import train_step
 from ..sharding import (
-    Sharding, check_divisibility, default_rules, gathered_tree, logical_to_sharding, reshard,
-    unshard,
+    Sharding, check_divisibility, default_rules, gathered_tree, logical_to_sharding, model_axis,
+    reshard, unshard,
 )
 from . import specs
 from .mesh import make_dryrun_mesh
@@ -212,14 +224,15 @@ def build_cell(
         b_shard = specs.batch_shardings(mesh, batch, g["batch"])
         return step, (params_struct, opt_struct, batch), (p_shard, opt_shard, b_shard)
 
+    plan = model_axis(split_products(cfg), p_shard)
     if cell.kind == "prefill":
         @torch.no_grad()
         def prefill_step(params, batch):
             # the state stays as computed (this rank's rows, whole): the
             # reference gives its prefill no output shardings either
-            with model.bind(gathered_tree(params, p_shard, axes)):
+            with model.bind(gathered_tree(params, p_shard, axes, plan), plan):
                 h, state = model.prefill(batch, max_len=g["seq"])
-                tokens = model.logits(h[:, -1:]).argmax(-1)
+                tokens = model.greedy(h[:, -1:])
             return tokens, state
 
         batch = specs.prefill_inputs(cfg, cell)
@@ -233,11 +246,10 @@ def build_cell(
 
     @torch.no_grad()
     def serve_step(params, tokens, state):
-        full = _whole(state, st_shard)
-        with model.bind(gathered_tree(params, p_shard, axes)):
-            h, new_state = model.decode_step(tokens, full)
-            out = model.logits(h[:, -1:]).argmax(-1)
-        return out, _blocks(new_state, st_shard)
+        with model.bind(gathered_tree(params, p_shard, axes, plan), plan):
+            h, new_state = model.decode_step(tokens, _whole(state, st_shard, plan))
+            out = model.greedy(h[:, -1:])
+        return out, _blocks(new_state, st_shard, plan)
 
     return (
         serve_step,
@@ -246,25 +258,47 @@ def build_cell(
     )
 
 
-def _per_key(fn, state, shardings):
+def _own_heads(key, plan) -> bool:
+    """Whether the plan splits the heads, so that a rank's cache holds the
+    K / V heads it computes."""
+    return key == "kv" and plan.splits("kv_heads")
+
+
+def _per_key(fn, state, shardings, plan):
+    """``fn(key, leaf, sharding, keep)`` for every leaf of ``state``: ``keep``
+    is the batch dim, and a cache's heads dim where the rules' block of it
+    is the K / V heads the rank computes."""
     out = {}
     for k, v in state.items():
-        keep = (specs.STATE_BATCH_DIM[k],)
-        if isinstance(v, tuple):
-            out[k] = tuple(fn(x, s, keep) for x, s in zip(v, shardings[k]))
-        else:
-            out[k] = fn(v, shardings[k], keep)
+        leaves, shards = (v, shardings[k]) if isinstance(v, tuple) else ((v,), (shardings[k],))
+        got = []
+        for x, s in zip(leaves, shards):
+            keep = (specs.STATE_BATCH_DIM[k],)
+            if _own_heads(k, plan) and s.tensor_dim("model") == 3:
+                keep += (3,)
+            got.append(fn(k, x, s, keep))
+        out[k] = tuple(got) if isinstance(v, tuple) else got[0]
     return out
 
 
-def _whole(state, shardings):
-    """The decode state with this rank's rows whole along every other dim."""
-    return _per_key(unshard, state, shardings)
+def _whole(state, shardings, plan):
+    """The decode state as a rank computes with it: its rows, whole along
+    every other dim but a cache's heads, which are the K / V heads it
+    computes where the plan splits the heads (cut from the gathered cache
+    where the rules shard its sequence instead)."""
+    def whole(k, x, s, keep):
+        x = unshard(x, s, keep)
+        if _own_heads(k, plan) and 3 not in keep:
+            k0, k1 = plan.ranges["kv_heads"]
+            x = x.narrow(3, k0, k1 - k0)
+        return x
+
+    return _per_key(whole, state, shardings, plan)
 
 
-def _blocks(state, shardings):
-    """The inverse: this rank's blocks of a whole state."""
-    return _per_key(reshard, state, shardings)
+def _blocks(state, shardings, plan):
+    """The inverse: this rank's blocks of the state it computed with."""
+    return _per_key(lambda k, x, s, keep: reshard(x, s, keep), state, shardings, plan)
 
 
 def _sharded_specs(shardings, prefix=""):

@@ -24,9 +24,12 @@ trainer:
                                        the audio family batch["frame_embeds"]
     decode_step(tokens, state)      -> (hidden, new_state)
     logits(hidden)                  -> vocabulary logits
+    greedy(hidden)                  -> the token of the largest logit
     abstract_init()                 -> (parameters on ``meta``, logical axes)
-    bind(params)                    -> a context in which the entry points run on
-                                       ``params`` instead of the model's own
+    bind(params, plan)              -> a context in which the entry points run on
+                                       ``params`` instead of the model's own (and,
+                                       on a mesh, compute this rank's share of
+                                       the products ``plan`` splits)
 """
 
 from __future__ import annotations
@@ -40,12 +43,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..sharding import WHOLE, ModelAxis, Product
 from . import common, encdec, hybrid, mamba2, transformer
 from .common import check_remat, rms_norm
 from .transformer import BIG, ModelConfig, MoEConfig
 
 __all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dtypes",
-           "param_axes"]
+           "param_axes", "split_products"]
 
 State = Dict[str, Any]
 
@@ -93,6 +97,17 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
             "final_ln": ("embed",)}
 
 
+def split_products(cfg: ModelConfig) -> Dict[str, Product]:
+    """The products the ``model`` axis may split, with the leaves each reads
+    (:func:`repro_torch.sharding.model_axis` turns them into a rank's plan):
+    the transformer families' (:func:`transformer.split_products`); none for
+    the ssm, hybrid and audio families, which compute whole on the ``model``
+    axis (mamba's ``in_proj`` concatenates z / x / B / C / dt along ``ff``,
+    so a column split cuts across them)."""
+    _require_ported(cfg)
+    return transformer.split_products(cfg) if cfg.family in _TRANSFORMER else {}
+
+
 def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
     """Flat ``name -> dtype``, the reference's: ``cfg.dtype`` for every
     parameter but a mamba layer's ``a_log`` / ``d_skip`` / ``dt_bias``, which
@@ -127,6 +142,7 @@ class Model(nn.Module):
         self.remat = check_remat(remat)
         self.device = resolve_device(device)
         self._bound: Optional[Mapping[str, Any]] = None
+        self._plan: ModelAxis = WHOLE
         storage = self.device if storage is None else torch.device(storage)
         # storage only; init() or load_state_dict() gives it values.  The
         # parameters ask for no gradients: a trainer turns them on
@@ -182,17 +198,20 @@ class Model(nn.Module):
         return transformer.nest(dict(self.named_parameters()))
 
     @contextlib.contextmanager
-    def bind(self, params: Mapping[str, Any]) -> Iterator["Model"]:
+    def bind(self, params: Mapping[str, Any], plan: ModelAxis = WHOLE) -> Iterator["Model"]:
         """Inside the context the entry points run on ``params`` (a nested
         tree with the reference's keys) instead of the model's own parameters:
-        the meshed trainer and the dry-run pass each rank's gathered weights
+        the meshed trainer and the dry-run pass each rank's weights
         (:func:`repro_torch.sharding.gathered_tree`) to a model whose own
-        storage is ``meta``."""
-        prev, self._bound = self._bound, params
+        storage is ``meta``.  The transformer families then compute this
+        rank's share of the products that ``plan`` (the one the tree was read
+        by, :func:`repro_torch.sharding.model_axis`) splits."""
+        prev = self._bound, self._plan
+        self._bound, self._plan = params, plan
         try:
             yield self
         finally:
-            self._bound = prev
+            self._bound, self._plan = prev
 
     def abstract_init(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple[Optional[str], ...]]]:
         """``(parameters, logical axes)`` without allocating anything: each
@@ -240,9 +259,9 @@ class Model(nn.Module):
             h, _ = transformer.forward(
                 cfg, params, tokens, attn_impl=self.attn_impl, remat=self.remat,
                 patch_embeds=batch.get("patch_embeds"),
-                mrope_positions=batch.get("mrope_positions"),
+                mrope_positions=batch.get("mrope_positions"), tp=self._plan,
             )
-            return transformer.lm_loss(cfg, params, h, targets)
+            return transformer.lm_loss(cfg, params, h, targets, tp=self._plan)
         if cfg.family == "hybrid":
             h, _ = hybrid.forward(cfg, params, tokens, attn_impl=self.attn_impl,
                                   ssd_impl=self.ssd_impl, remat=self.remat)
@@ -296,11 +315,13 @@ class Model(nn.Module):
                 ssm_states=ssm, conv_states=conv,
             )
             return h, {**state, "pos": pos}
-        caches = transformer.init_kv_cache(cfg, B, max_len, device=self.device)
+        k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
+        caches = transformer.init_kv_cache(cfg, B, max_len, device=self.device, kv_heads=k1 - k0)
         h, caches = transformer.forward(
             cfg, self.params, tokens, attn_impl=self.attn_impl,
             kv_caches=caches, cache_positions=self._cache_positions(B, max_len),
             patch_embeds=batch.get("patch_embeds"), mrope_positions=batch.get("mrope_positions"),
+            tp=self._plan,
         )
         return h, {"kv": caches, "pos": pos}
 
@@ -332,12 +353,26 @@ class Model(nn.Module):
             return h, {**new, "pos": pos}
         h, kv = transformer.forward(
             cfg, self.params, tokens, positions=state["pos"][:, None],
-            attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos,
+            attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos, tp=self._plan,
         )
         return h, {"kv": kv, "pos": pos}
 
-    @torch.no_grad()
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """The logits this rank computes: its block of the vocabulary where
+        the plan splits it."""
         if self.cfg.family in _TRANSFORMER:   # lm_head, or embed.T where tied
             return transformer.lm_head(self.cfg, self.params, h)
         return h @ self.params["embed"].T.to(h.dtype)   # ssm, hybrid and audio tie their embedding
+
+    @torch.no_grad()
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary's logits (gathered over the ``model`` axis
+        where the plan splits the vocabulary)."""
+        return self._plan.gather(self._head(h), "vocab")
+
+    @torch.no_grad()
+    def greedy(self, h: torch.Tensor) -> torch.Tensor:
+        """The index of the largest logit, the lowest on a tie, as
+        ``logits(h).argmax(-1)``; where the plan splits the vocabulary, from
+        each rank's best without gathering the logits."""
+        return self._plan.argmax(self._head(h), "vocab")

@@ -17,7 +17,13 @@ backbone:
   stack, :func:`forward` loops over its leading axis;
 * the same functions serve a full forward pass, prefill (fills a KV cache),
   decode (one token against the cache) and training (``remat`` recomputes
-  each layer in backward; :func:`lm_loss` is the chunked cross-entropy).
+  each layer in backward; :func:`lm_loss` is the chunked cross-entropy);
+* on a mesh whose ``model`` axis is wider than 1, ``tp`` (a
+  :class:`repro_torch.sharding.ModelAxis` made from :func:`split_products`)
+  says which products this rank computes a share of: its query heads and
+  their K / V heads, its part of ``ff``, its experts or its part of
+  ``ff_expert``, its rows of the vocabulary; ``lp`` then holds those blocks
+  of the weights.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..sharding import WHOLE, ModelAxis, Product
 from .attention import attention
 from .common import (
     apply_mrope, apply_rope, check_remat, layer_params, mrope_sin_cos, remat_call, rms_norm,
@@ -174,6 +181,36 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
             for name in param_shapes(cfg)}
 
 
+def split_products(cfg: ModelConfig) -> Dict[str, Product]:
+    """The products the ``model`` axis splits where the rules shard their
+    leaves along the dims given (Megatron's layout;
+    :func:`repro_torch.sharding.model_axis`): attention by whole query heads
+    (``wq`` / ``bq`` by columns, ``wo`` by rows) and the K / V heads their
+    GQA groups read; the dense MLP and the shared expert over ``ff``
+    (``w_gate`` / ``w_up`` by columns, ``w_down`` by rows); the routed
+    experts over ``expert``, or over ``ff_expert`` where the rules split
+    that instead; the vocabulary's embedding rows and head columns (where
+    the head is ``embed.T``, the embedding's rows).  The router, the shared
+    expert's gate and ``patch_proj`` stay whole."""
+    Hq, Hkv, Dh, m = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.moe
+    vocab = {"embed": 0} if cfg.tie_embeddings else {"embed": 0, "lm_head": 1}
+    out = {
+        "heads": Product({"layers.wq": 2, "layers.wo": 1, "layers.bq": 1}, Hq, Dh),
+        "kv_heads": Product({"layers.wk": 2, "layers.wv": 2, "layers.bk": 1, "layers.bv": 1},
+                            Hkv, Dh, read_by=("heads", Hq // Hkv)),
+        "ff": Product({"layers.w_gate": 2, "layers.w_up": 2, "layers.w_down": 1}, cfg.d_ff),
+        "vocab": Product(vocab, cfg.vocab),
+    }
+    if m is not None:
+        out["experts"] = Product(
+            {"layers.we_gate": 1, "layers.we_up": 1, "layers.we_down": 1}, m.n_experts)
+        out["ff_expert"] = Product(
+            {"layers.we_gate": 3, "layers.we_up": 3, "layers.we_down": 2}, m.d_ff_expert)
+        out["shared"] = Product(
+            {"layers.ws_gate": 2, "layers.ws_up": 2, "layers.ws_down": 1}, m.d_ff_shared)
+    return out
+
+
 def fill_params(
     cfg: ModelConfig, params: Dict[str, torch.Tensor], generator: torch.Generator
 ) -> None:
@@ -235,16 +272,17 @@ def route(
 
 def _moe_dense_exact(
     x: torch.Tensor, lp: Dict[str, torch.Tensor], m: MoEConfig,
-    gate: torch.Tensor, expert: torch.Tensor,
+    gate: torch.Tensor, expert: torch.Tensor, experts: Tuple[int, int],
 ) -> torch.Tensor:
-    """Exact no-drop MoE for small ``T``: every expert runs on every token and
-    the top-k weights select.  ``O(T·E·D·F)``: decode-sized inputs only.  The
-    products are batched over the experts against the stacked weights as they
-    lie (no copy of a weight)."""
+    """Exact no-drop MoE for small ``T``: every expert of ``experts`` (the
+    stacked weights' ``(start, stop)``) runs on every token and the top-k
+    weights select.  ``O(T·E·D·F)``: decode-sized inputs only.  The products
+    are batched over the experts against the stacked weights as they lie (no
+    copy of a weight)."""
     h = swiglu(torch.matmul(x, lp["we_gate"]), torch.matmul(x, lp["we_up"]))   # (E, T, F)
     y_all = torch.bmm(h, lp["we_down"])                                      # (E, T, D)
-    onehot = torch.nn.functional.one_hot(expert, m.n_experts).to(y_all.dtype)  # (T, k, E)
-    w = (onehot * gate[..., None].to(y_all.dtype)).sum(dim=1)                 # (T, E)
+    onehot = F.one_hot(expert, m.n_experts)[..., experts[0]:experts[1]]       # (T, k, E)
+    w = (onehot.to(y_all.dtype) * gate[..., None].to(y_all.dtype)).sum(dim=1)  # (T, E)
     return torch.einsum("etd,te->td", y_all, w)
 
 
@@ -253,19 +291,32 @@ def moe_ffn(
     lp: Dict[str, torch.Tensor],
     m: MoEConfig,
     dense_path_max_tokens: int = DENSE_PATH_MAX_TOKENS,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """``x (T, D) -> (T, D)``.  Sort-based position assignment and a scatter
     into an ``(E, C, D)`` expert buffer; an assignment past an expert's
     capacity ``C`` goes to a drop bucket and contributes 0.  Inputs of at most
     ``dense_path_max_tokens`` tokens take the exact path.  The shapes depend
-    on ``T`` alone, so nothing here reads a value back to the host."""
+    on ``T`` alone, so nothing here reads a value back to the host.
+
+    Under ``tp`` every rank routes the same rows (so the drops are the
+    unsplit layer's); where the routed experts are split, a rank fills and
+    runs only its experts' slots (or runs every expert on its part of
+    ``ff_expert``), where the shared expert is split its part of ``ff``, and
+    the parts are summed over the ``model`` axis.  The gates enter the split
+    region too: a rank's products give the gradient of its experts' gates
+    only."""
     T, D = x.shape
     E, k = m.n_experts, m.top_k
     C = max(1, int(math.ceil(T * k / E * m.capacity_factor)))
     gate, expert = route(x, lp, m)
+    routed, shared = ("experts", "ff_expert"), ("shared",)
+    xr, xh = tp.enter_each(x, routed, shared)
+    gate = tp.enter(gate, *routed)
+    experts = tp.range("experts", E)
 
     if T <= dense_path_max_tokens:
-        y = _moe_dense_exact(x, lp, m, gate, expert)
+        y = _moe_dense_exact(xr, lp, m, gate, expert, experts)
     else:
         flat_e = expert.reshape(-1)                                   # (T*k,)
         # position of each assignment within its expert, via a stable sort
@@ -276,26 +327,29 @@ def moe_ffn(
         is_start[1:] = sorted_e[1:] != sorted_e[:-1]
         group_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
         pos = (idx - group_start)[torch.argsort(perm, stable=True)]
-        keep = pos < C
-        dest = torch.where(keep, flat_e * C + pos, E * C)             # drop bucket at E*C
+        # kept assignments to this rank's experts; the rest (past capacity,
+        # or another rank's) go to the drop bucket at the end
+        e0, n = experts[0], experts[1] - experts[0]
+        keep = (pos < C) & (flat_e >= e0) & (flat_e < e0 + n)
+        dest = torch.where(keep, (flat_e - e0) * C + pos, n * C)
         # each kept assignment has a slot of its own; only the drop bucket,
         # which is cut off below, receives more than one
-        buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-        buf.index_add_(0, dest, x.repeat_interleave(k, dim=0))
-        xe = buf[:E * C].view(E, C, D)
+        buf = torch.zeros((n * C + 1, D), dtype=x.dtype, device=x.device)
+        buf.index_add_(0, dest, xr.repeat_interleave(k, dim=0))
+        xe = buf[:n * C].view(n, C, D)
         h = swiglu(torch.bmm(xe, lp["we_gate"]), torch.bmm(xe, lp["we_up"]))
-        ye = torch.cat([torch.bmm(h, lp["we_down"]).reshape(E * C, D),
+        ye = torch.cat([torch.bmm(h, lp["we_down"]).reshape(n * C, D),
                         torch.zeros((1, D), dtype=x.dtype, device=x.device)])
         y = ye[dest] * gate.reshape(-1, 1).to(ye.dtype) * keep[:, None]
         y = y.reshape(T, k, D).sum(dim=1)
 
-    if m.n_shared:
-        ys = swiglu(x @ lp["ws_gate"], x @ lp["ws_up"]) @ lp["ws_down"]
-        if m.shared_gate:
-            # the gate's sigmoid in fp32, rounded to the model's dtype before the product
-            ys = ys * torch.sigmoid((x @ lp["ws_g"]).float()).to(ys.dtype)
-        y = y + ys
-    return y
+    if not m.n_shared:
+        return tp.leave(y, *routed)
+    ys = swiglu(xh @ lp["ws_gate"], xh @ lp["ws_up"]) @ lp["ws_down"]
+    if m.shared_gate:
+        # the gate's sigmoid in fp32, rounded to the model's dtype before the product
+        ys = ys * tp.enter(torch.sigmoid((x @ lp["ws_g"]).float()).to(ys.dtype), *shared)
+    return tp.leave_sum((routed, y), (shared, ys))
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +360,10 @@ def moe_ffn(
 def _qkv(
     h: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Queries, keys and values of the heads ``lp`` holds (a rank's share
+    under a plan that splits the heads)."""
     B, S, _ = h.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    Dh = cfg.dh
     q = h @ lp["wq"]
     k = h @ lp["wk"]
     v = h @ lp["wv"]
@@ -316,9 +372,9 @@ def _qkv(
         k = k + lp["bk"]
         v = v + lp["bv"]
     return (
-        q.reshape(B, S, Hq, Dh),
-        k.reshape(B, S, Hkv, Dh),
-        v.reshape(B, S, Hkv, Dh),
+        q.reshape(B, S, -1, Dh),
+        k.reshape(B, S, -1, Dh),
+        v.reshape(B, S, -1, Dh),
     )
 
 
@@ -376,6 +432,7 @@ def block(
     rope_tables: Optional[RopeTables] = None,
     cache_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mrope_positions: Optional[torch.Tensor] = None,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """One pre-norm transformer block; returns the new hidden states.
 
@@ -383,10 +440,12 @@ def block(
     in place** with the current keys and values at ``positions[:, 0]``,
     rounded to the cache's dtype (the reference returns a new pair instead).
     ``rope_tables`` and ``cache_index`` are what :func:`forward` computes once
-    for all layers; a lone call works them out itself.
+    for all layers; a lone call works them out itself.  Under ``tp`` the
+    attention of a rank's heads (its cache holds their K / V heads) and its
+    part of the MLP are summed over the ``model`` axis.
     """
     x = rms_norm(h, lp["ln1"])
-    q, k, v = _qkv(x, lp, cfg)
+    q, k, v = _qkv(tp.enter(x, "heads"), lp, cfg)
     q = _rope(cfg, q, positions, kind, rope_tables, mrope_positions)
     k = _rope(cfg, k, positions, kind, rope_tables, mrope_positions)
 
@@ -407,13 +466,14 @@ def block(
         impl=attn_impl, window=window, chunk_attn=chunk,
     )
     B, S = h.shape[:2]
-    h = h + (o.reshape(B, S, -1) @ lp["wo"]).to(h.dtype)
+    h = h + tp.leave(o.reshape(B, S, -1) @ lp["wo"], "heads").to(h.dtype)
 
     x = rms_norm(h, lp["ln2"])
     if cfg.moe is None:
-        y = swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
+        xf = tp.enter(x, "ff")
+        y = tp.leave(swiglu(xf @ lp["w_gate"], xf @ lp["w_up"]) @ lp["w_down"], "ff")
     else:
-        y = moe_ffn(x.reshape(-1, cfg.d_model), lp, cfg.moe).reshape(x.shape)
+        y = moe_ffn(x.reshape(-1, cfg.d_model), lp, cfg.moe, tp=tp).reshape(x.shape)
     return h + y.to(h.dtype)
 
 
@@ -453,6 +513,7 @@ def forward(
     patch_embeds: Optional[torch.Tensor] = None,     # (B, P, D): vlm only
     mrope_positions: Optional[torch.Tensor] = None,  # (B, S, 3): vlm only
     remat: str = "none",                             # none | dots | full
+    tp: ModelAxis = WHOLE,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (final hidden states (B,S,D), the KV caches or None).
 
@@ -469,11 +530,12 @@ def forward(
     ``remat`` ``dots`` / ``full`` recompute each block in backward
     (:func:`repro_torch.models.common.remat_call`).  The embedding is looked
     up by ``F.embedding``, whose backward on CUDA is deterministic (an
-    indexing's would add rows with atomics).
+    indexing's would add rows with atomics).  ``tp`` is the plan of this
+    rank's share of the products (:class:`repro_torch.sharding.ModelAxis`).
     """
     check_remat(remat)
     B, S = tokens.shape
-    h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    h = _embed(params["embed"], tokens, tp).to(cfg.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
         P = patch_embeds.shape[1]
         proj = (patch_embeds.to(cfg.dtype) @ params["patch_proj"]).to(cfg.dtype)
@@ -494,24 +556,53 @@ def forward(
         h = remat_call(block, remat, cfg, h, lp, kind, positions, attn_impl,
                        kv_cache=cache, cache_positions=cache_positions,
                        rope_tables=rope_tables, cache_index=cache_index,
-                       mrope_positions=mrope_positions)
+                       mrope_positions=mrope_positions, tp=tp)
 
     h = rms_norm(h, params["final_ln"])
     return h, kv_caches
 
 
+def _embed(w: torch.Tensor, tokens: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """The embedding lookup; vocab-parallel where ``tp`` splits the
+    vocabulary: a rank looks up the ids in its rows, zeroes the others' and
+    the ranks' rows are summed (exact: one of them is not zero)."""
+    if not tp.splits("vocab"):
+        return F.embedding(tokens, w)
+    v0, v1 = tp.ranges["vocab"]
+    ids = tokens - v0
+    other = (ids < 0) | (ids >= v1 - v0)
+    rows = F.embedding(ids.masked_fill(other, 0), w).masked_fill(other[..., None], 0)
+    return tp.leave(rows, "vocab")
+
+
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """The logits of ``h``: over a rank's block of the vocabulary where the
+    bound head is its block."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
 
 
 def _chunk_nll(cfg: ModelConfig, params: Params, h: torch.Tensor,
-               targets: torch.Tensor) -> torch.Tensor:
+               targets: torch.Tensor, tp: ModelAxis = WHOLE) -> torch.Tensor:
     """Summed negative log-likelihood of one chunk: fp32 logits of
-    ``h (B, c, D)``, targets ``< 0`` left out."""
-    logits = lm_head(cfg, params, h).float()
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
-                           ignore_index=-1, reduction="sum")
+    ``h (B, c, D)``, targets ``< 0`` left out.  Where ``tp`` splits the
+    vocabulary, a vocab-parallel cross-entropy: each rank's logits are its
+    block of the vocabulary; the max, the sum of exponentials and the
+    target's logit are taken over the ``model`` axis."""
+    if not tp.splits("vocab"):
+        logits = lm_head(cfg, params, h).float()
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                               ignore_index=-1, reduction="sum")
+    logits = lm_head(cfg, params, tp.enter(h, "vocab")).float()
+    m = tp.all_max(logits.amax(dim=-1))
+    v0, v1 = tp.ranges["vocab"]
+    t = targets - v0
+    mine = (t >= 0) & (t < v1 - v0)
+    gold = logits.gather(-1, t.clamp(0, v1 - v0 - 1)[..., None])[..., 0]
+    sums = tp.leave(torch.stack([torch.exp(logits - m[..., None]).sum(dim=-1),
+                                 torch.where(mine, gold, torch.zeros_like(gold))]), "vocab")
+    nll = torch.log(sums[0]) + m - sums[1]
+    return torch.where(targets >= 0, nll, torch.zeros_like(nll)).sum()
 
 
 def lm_loss(
@@ -520,6 +611,7 @@ def lm_loss(
     h: torch.Tensor,        # (B, S, D) final hidden
     targets: torch.Tensor,  # (B, S) integer; < 0 is not counted
     chunk: int = 512,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """Chunked cross-entropy: the ``(B, S, V)`` logits are never built.
 
@@ -539,9 +631,9 @@ def lm_loss(
         hh, tt = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
             total = total + torch.utils.checkpoint.checkpoint(
-                _chunk_nll, cfg, params, hh, tt, use_reentrant=False)
+                _chunk_nll, cfg, params, hh, tt, tp, use_reentrant=False)
         else:
-            total = total + _chunk_nll(cfg, params, hh, tt)
+            total = total + _chunk_nll(cfg, params, hh, tt, tp)
     count = (targets >= 0).sum()
     return total / count.clamp_min(1)
 
@@ -554,12 +646,15 @@ def lm_loss(
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int,
     dtype: torch.dtype = torch.bfloat16, device: DeviceLike = "cuda",
+    kv_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed ``(L, B, max_len, Hkv, Dh)`` caches — bfloat16 whatever
     ``cfg.dtype`` is, as in the reference: a float32 model still attends over
-    bfloat16 keys and values on the cached path."""
+    bfloat16 keys and values on the cached path.  ``kv_heads``: the K / V
+    heads a rank computes, where a plan splits the heads (all of them by
+    default)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
+    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.dh)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 

@@ -10,11 +10,13 @@ Counterpart of ``repro.runtime.trainer``:
   and optionally ``pod``) — the parameters and moments are DTensors laid out
   by :func:`repro_torch.sharding.default_rules` (``fsdp`` shards the
   ``embed`` axis over the data axes too); each rank reads its rows of the
-  global batch, gathers each layer's weights where the layer reads them and
-  computes on local tensors (:mod:`repro_torch.sharding`, "Running on a
-  mesh"); the gradients come back summed over the data axes and cut to each
-  rank's block; the loss is the global mean, every rank's mean weighted by
-  its share of the counted targets.  The update runs on each rank's blocks,
+  global batch, gathers each layer's weights over the data axes where the
+  layer reads them, computes its share of the products the rules shard
+  over ``model`` (heads, ``ff``, experts, vocabulary) and the rest whole, on
+  local tensors (:mod:`repro_torch.sharding`, "Running on a mesh"); each
+  gradient comes back as this rank's block, summed over the data axes; the
+  loss is the global mean, every rank's mean weighted by its share of the
+  counted targets.  The update runs on each rank's blocks,
   the clipping norm over the whole mesh.  No op of the model goes through
   DTensor dispatch: the DTensors hold the state, local tensors do the work;
 * **elastic rescale** — :meth:`Trainer.remesh` moves the trainer to another
@@ -51,7 +53,7 @@ from torch.distributed.tensor import DTensor
 from ..checkpoint import CheckpointManager
 from ..data import DataConfig, SyntheticLM
 from ..device import DeviceLike, resolve_device
-from ..models import Model, ModelConfig, param_axes, param_shapes, transformer
+from ..models import Model, ModelConfig, param_axes, param_shapes, split_products, transformer
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from .. import sharding as shd
 
@@ -73,7 +75,8 @@ def loss_and_grads(model: Model, params: Params, batch: Dict[str, torch.Tensor],
         loss = model.train_loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
-    with model.bind(shd.gathered_tree(params, shardings, param_axes(model.cfg))):
+    plan = shd.model_axis(split_products(model.cfg), shardings)
+    with model.bind(shd.gathered_tree(params, shardings, param_axes(model.cfg), plan), plan):
         loss = model.train_loss(batch)
     # the global mean: each rank's mean weighted by its share of the counted
     # targets (exactly 1.0 where one rank holds the batch)

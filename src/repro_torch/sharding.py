@@ -26,20 +26,48 @@ dims; DTensor orders the shards by mesh dim, outer first, which is the
 order of the names in the spec and in the reference's ``PartitionSpec``.
 
 **Running on a mesh.**  The port computes on local tensors, as XLA's FSDP
-does inside its layer scan: each rank gathers one layer's weights to full
-where the layer reads them (:func:`unshard`, :class:`GatheredStack`) and
-runs the model on its rows of the batch.  The backward of a gather reduces
-the gradient over the data axes (the ranks there saw other rows) and keeps
-this rank's shard; the ranks of the ``model`` axis compute the same values,
-so a gradient is only cut there.  No op of the model runs through DTensor
-dispatch, so none needs a DTensor sharding rule (the embedding's lookup, the
-MoE capacity path's ``index_add_`` and the rest run on local tensors).  What
-is not sharded is the work: the ``model`` axis shards storage (parameters,
-moments, caches), not the products over ``heads`` / ``ff`` / ``vocab``, and
-the experts are gathered, not dispatched; there is no tensor- or
-expert-parallel product in the port (ROADMAP Queue C).  Collectives are the
-functional ones (``torch.ops._c10d_functional``); a mesh dim of size 1 issues
-none.
+does inside its layer scan: each rank reads one layer's weights where the
+layer runs (:class:`GatheredStack`) and computes on its rows of the batch.
+The data axes (``pod``, ``data``) hold fsdp shards: a weight is gathered
+over them where it is read, and the backward of the gather sums the
+gradient over them (the ranks there saw other rows) and keeps this rank's
+shard.  On the ``model`` axis each rank computes **its share of the
+products the rules shard** (Megatron's layout on local tensors).  A model
+family declares which products may split, the leaves each reads and the
+dim that holds its units (:class:`Product`,
+:func:`repro_torch.models.split_products`); :func:`model_axis` reads this
+rank's share off the leaves' shardings into a plan (:class:`ModelAxis`),
+which the model computes under.  For the transformer families:
+
+* attention by whole heads, where ``n_heads`` divides the axis: ``wq`` /
+  ``bq`` column-parallel and ``wo`` row-parallel on the storage shard as it
+  lies; the K / V heads a rank's query heads read are its own shard of
+  ``wk`` / ``wv`` where ``n_kv_heads`` divides the axis, else gathered over
+  it and cut to those heads (one K / V head a rank).  Where ``n_heads`` does
+  not divide the axis, attention is computed whole on every rank (GSPMD
+  splits those heads below a head; the port does not);
+* the dense MLP and the MoE shared expert over ``ff`` (``w_gate`` / ``w_up``
+  column-, ``w_down`` row-parallel), the routed experts over ``expert``
+  (each rank runs its experts' slots) or, where the expert count does not
+  divide the axis, over ``ff_expert``; the router and the shared expert's
+  gate run whole, every rank routing the same rows;
+* the vocabulary: a vocab-parallel embedding lookup, the head
+  column-parallel and the loss a vocab-parallel cross-entropy; greedy
+  decoding takes the argmax across the shards.
+
+A region split this way is entered by an identity whose backward sums the
+gradient over the axis and left by a sum whose backward is the identity,
+so the activations between regions (and the gradients of the leaves not
+split) are the same on every rank of the axis, and a split leaf's gradient
+is this rank's block.  A leaf the rules shard over ``model`` whose product
+stays whole (the attention of heads that do not divide the axis) is
+gathered over ``model`` and its gradient cut back to this rank's block.
+The ssm, hybrid and audio families gather every leaf and compute whole on
+the ``model`` axis.  No op of the model runs through DTensor dispatch, so
+none needs a DTensor sharding rule (the embedding's lookup, the MoE
+capacity path's ``index_add_`` and the rest run on local tensors).
+Collectives are the functional ones (``torch.ops._c10d_functional``); a
+mesh dim of size 1 issues none.
 """
 
 from __future__ import annotations
@@ -333,8 +361,8 @@ def _steps(sharding: Sharding, keep: Tuple[int, ...]):
 
 class _Unshard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sharding, keep):
-        ctx.sharding, ctx.keep = sharding, keep
+    def forward(ctx, x, sharding, keep, partial):
+        ctx.sharding, ctx.keep, ctx.partial = sharding, keep, partial
         mesh = sharding.mesh
         for axis, _, d in reversed(_steps(sharding, keep)):   # inner axis first
             if d is not None:
@@ -346,23 +374,27 @@ class _Unshard(torch.autograd.Function):
         mesh = ctx.sharding.mesh
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         for axis, size, d in _steps(ctx.sharding, ctx.keep):   # outer axis first
-            if axis in DATA_AXES:          # other rows on the other ranks: sum
+            if axis in DATA_AXES or ctx.partial:   # a part of the gradient on each rank: sum
                 grad = (_all_reduce(grad, mesh.get_group(axis)) if d is None
                         else _reduce_scatter(grad, d, mesh.get_group(axis)))
             elif d is not None:            # the same values everywhere: cut
                 grad = grad.tensor_split(size, dim=d)[coord[axis]]
-        return grad, None, None
+        return grad, None, None, None
 
 
-def unshard(local: torch.Tensor, sharding: Sharding, keep: Tuple[int, ...] = ()) -> torch.Tensor:
+def unshard(local: torch.Tensor, sharding: Sharding, keep: Tuple[int, ...] = (),
+            partial: bool = False) -> torch.Tensor:
     """This rank's block ``local`` of a tensor laid out by ``sharding``,
     gathered to full along every sharded dim but the ``keep`` dims (a batch
-    dim whose rows are this rank's).  Differentiable: the gradient is summed
-    over the data axes that do not shard a ``keep`` dim and cut back to this
-    rank's block.  With nothing to gather it is ``local`` itself."""
+    dim whose rows are this rank's, a weight's dim split over ``model``).
+    Differentiable: the gradient is summed over the data axes that do not
+    shard a ``keep`` dim and cut back to this rank's block; with ``partial``
+    (the ranks of the ``model`` axis each read another part of the result)
+    it is summed over that axis too.  With nothing to gather and nothing to
+    sum it is ``local`` itself."""
     if not _steps(sharding, keep):
         return local
-    return _Unshard.apply(local, sharding, tuple(keep))
+    return _Unshard.apply(local, sharding, tuple(keep), partial)
 
 
 def reshard(full: torch.Tensor, sharding: Sharding, keep: Tuple[int, ...] = ()) -> torch.Tensor:
@@ -404,16 +436,213 @@ def replicas(sharding: Sharding) -> int:
                      if sharding.tensor_dim(axis) is None)
 
 
+# ---------------------------------------------------------------------------
+# Products split over the model axis
+# ---------------------------------------------------------------------------
+
+
+class _EnterSplit(torch.autograd.Function):
+    """Into a region split over the ``model`` axis: the identity; in
+    backward each rank holds a part of the gradient, and the parts are summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _LeaveSplit(torch.autograd.Function):
+    """Out of a region split over the ``model`` axis: the ranks' parts
+    summed; in backward the identity (each rank's part needs the whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+Range = Tuple[int, int]
+#: how a rank reads a leaf whose product is split: ``("split", dim)`` keeps
+#: the leaf's ``model``-axis block of ``dim`` as it lies; ``("slice", dim,
+#: start, stop)`` gathers the leaf over the axis and takes ``start:stop`` of
+#: ``dim`` (the K / V heads of a storage shard that cuts a head)
+Take = Tuple[Any, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Product:
+    """A product the ``model`` axis may split, as a model family declares it
+    (:func:`repro_torch.models.split_products`): the leaves it reads, each
+    with the dim that holds its units, and the count of its units (heads,
+    ``ff`` rows, experts, vocabulary rows), each ``width`` wide along those
+    dims.  ``read_by`` ``(product, group)``: that product's units read this
+    one's, ``group`` of them each (query heads reading their K / V head);
+    this one is split where that one is, on the units a rank's share reads."""
+
+    leaves: Mapping[str, int]
+    units: int
+    width: int = 1
+    read_by: Optional[Tuple[str, int]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """One rank's share of a model's products on the ``model`` axis
+    (:func:`model_axis`): ``ranges`` maps each split product to this rank's
+    ``(start, stop)`` of its units, ``takes`` each leaf those read to how it
+    is read.  A product not in ``ranges`` is computed whole, and the methods
+    leave its tensors as they are: :data:`WHOLE`, the plan off a mesh or on
+    a 1-wide axis, splits nothing and issues no collective."""
+
+    group: Any = None
+    ranges: Mapping[str, Range] = dataclasses.field(default_factory=dict)
+    takes: Mapping[str, Take] = dataclasses.field(default_factory=dict)
+
+    def splits(self, *products: str) -> bool:
+        return any(p in self.ranges for p in products)
+
+    def range(self, product: str, units: int) -> Range:
+        """This rank's units of ``product``: all ``units`` where it is whole."""
+        return self.ranges.get(product, (0, units))
+
+    def enter(self, x: torch.Tensor, *products: str) -> torch.Tensor:
+        """``x`` into the region where ``products`` are split."""
+        return _EnterSplit.apply(x, self.group) if self.splits(*products) else x
+
+    def leave(self, x: torch.Tensor, *products: str) -> torch.Tensor:
+        """A split region's part ``x`` out of it: the ranks' parts summed."""
+        return _LeaveSplit.apply(x, self.group) if self.splits(*products) else x
+
+    def enter_each(self, x: torch.Tensor, *regions: Tuple[str, ...]):
+        """``x`` as each region (a tuple of products) reads it: the split
+        regions share one entry (one sum of their gradients in backward),
+        the others read ``x``."""
+        xs = self.enter(x, *(p for r in regions for p in r))
+        return [xs if self.splits(*r) else x for r in regions]
+
+    def leave_sum(self, *parts: Tuple[Tuple[str, ...], torch.Tensor]) -> torch.Tensor:
+        """The sum of ``(region, part)`` pairs: the split regions' parts
+        summed over the axis in one, then the whole regions' added."""
+        split = [t for r, t in parts if self.splits(*r)]
+        terms = [t for r, t in parts if not self.splits(*r)]
+        if split:
+            terms.insert(0, _LeaveSplit.apply(sum(split[1:], split[0]), self.group))
+        return sum(terms[1:], terms[0])
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The element-wise max over the axis (no gradient)."""
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.all_reduce(x.detach().contiguous(), "max",
+                                                self.group.group_name))
+
+    def gather(self, x: torch.Tensor, product: str) -> torch.Tensor:
+        """The whole of ``x``, whose last dim holds this rank's units of
+        ``product``: the ranks' blocks put together in rank order (no
+        gradient); ``x`` itself where ``product`` is whole."""
+        return _all_gather(x.detach(), x.dim() - 1, self.group) if self.splits(product) else x
+
+    def argmax(self, local: torch.Tensor, product: str) -> torch.Tensor:
+        """The index of the largest element along the last dim, the lowest
+        on a tie, as ``argmax`` of the whole picks it; where ``product`` is
+        split, from each rank's first maximum in its units, then the first
+        rank that holds the largest."""
+        if not self.splits(product):
+            return local.argmax(dim=-1)
+        idx = local.argmax(dim=-1, keepdim=True)
+        vals = self.gather(local.gather(-1, idx), product)
+        idxs = self.gather(idx + self.ranges[product][0], product)
+        return idxs.gather(-1, vals.argmax(dim=-1, keepdim=True))[..., 0]
+
+
+#: the plan that splits nothing
+WHOLE = ModelAxis()
+
+
+def read_range(units: Range, group: int) -> Optional[Range]:
+    """The units another product's ``units`` read, ``group`` of them each
+    (a GQA group: query heads reading their K / V head): whole groups, or
+    the one group they lie in.  None where they do neither, so that a rank's
+    units would not read alike."""
+    start, stop = units
+    if start % group == 0 and stop % group == 0:
+        return start // group, stop // group
+    if start // group == (stop - 1) // group and group % (stop - start) == 0:
+        return start // group, start // group + 1
+    return None
+
+
+def model_axis(products: Mapping[str, Product], shardings: Mapping[str, Sharding]
+               ) -> ModelAxis:
+    """This rank's plan (:class:`ModelAxis`), read off the leaves'
+    ``shardings`` (flat names).  A product is split where its units divide
+    the axis and the rules shard every leaf it reads over ``model`` along
+    its units' dim, so that each rank's storage block is its share.  A
+    product read by another (``Product.read_by``) is split where that one
+    is: its leaves as they lie where their block is the units the rank's
+    share reads, else gathered over the axis and cut to them.  :data:`WHOLE`
+    where the axis is 1 wide or nothing is split."""
+    mesh = next(iter(shardings.values())).mesh
+    M = mesh_axes(mesh).get("model", 1)
+    if M == 1:
+        return WHOLE
+    r = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["model"]
+    ranges: Dict[str, Range] = {}
+    takes: Dict[str, Take] = {}
+    for name, p in products.items():
+        leaves = {n: d for n, d in p.leaves.items() if n in shardings}
+        own = (r * p.units // M, (r + 1) * p.units // M)
+        lies = (bool(leaves) and p.units % M == 0
+                and all(shardings[n].tensor_dim("model") == d for n, d in leaves.items()))
+        if p.read_by is None:
+            if lies:
+                ranges[name] = own
+                takes.update({n: ("split", d) for n, d in leaves.items()})
+            continue
+        reader, group = p.read_by
+        units = read_range(ranges[reader], group) if reader in ranges else None
+        if units is None:       # the reader stays whole too
+            if ranges.pop(reader, None) is not None:
+                takes = {n: t for n, t in takes.items() if n not in products[reader].leaves}
+            continue
+        ranges[name] = units
+        takes.update({n: ("split", d) if lies and units == own
+                      else ("slice", d, units[0] * p.width, units[1] * p.width)
+                      for n, d in leaves.items()})
+    return ModelAxis(mesh.get_group("model"), ranges, takes) if ranges else WHOLE
+
+
+def read(local: torch.Tensor, sharding: Sharding, take: Optional[Take] = None) -> torch.Tensor:
+    """A leaf's local block ``local`` as a rank computes with it: gathered
+    to full, or as the plan's ``take`` says."""
+    if take is None:
+        return unshard(local, sharding)
+    if take[0] == "split":
+        return unshard(local, sharding, keep=(take[1],))
+    _, dim, start, stop = take
+    return unshard(local, sharding, partial=True).narrow(dim, start, stop - start)
+
+
 class GatheredStack:
     """A layer-stacked group of local blocks whose layer ``i``
     (:meth:`layer`, read by :func:`repro_torch.models.common.layer_params`)
-    gathers each weight to full where the layer reads it.  Inside a
-    rematerialised layer the gather is redone in backward, so at most the
-    layers being computed are ever held whole."""
+    reads each weight where the layer runs (:func:`read`): gathered over the
+    data axes, and over ``model`` unless the plan splits its product
+    (``takes``).  Inside a rematerialised layer the gather is redone in
+    backward, so at most the layers being computed are ever held gathered."""
 
-    def __init__(self, locals_: Dict[str, torch.Tensor], shardings: Dict[str, Sharding]):
+    def __init__(self, locals_: Dict[str, torch.Tensor], shardings: Dict[str, Sharding],
+                 takes: Optional[Mapping[str, Take]] = None):
         self._locals = locals_
         self._shardings = {k: s.drop_leading() for k, s in shardings.items()}
+        self._takes = dict(takes or {})
 
     def layer(self, i: int) -> "_Layer":
         return _Layer(self, i)
@@ -425,7 +654,7 @@ class _Layer(Mapping):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         s = self._stack
-        return unshard(s._locals[name][self._i], s._shardings[name])
+        return read(s._locals[name][self._i], s._shardings[name], s._takes.get(name))
 
     def __contains__(self, name) -> bool:
         return name in self._stack._locals
@@ -438,24 +667,28 @@ class _Layer(Mapping):
 
 
 def gathered_tree(params: Mapping[str, torch.Tensor], shardings: Mapping[str, Sharding],
-                  axes: Mapping[str, Tuple[Optional[str], ...]]) -> Dict[str, Any]:
+                  axes: Mapping[str, Tuple[Optional[str], ...]],
+                  plan: ModelAxis = WHOLE) -> Dict[str, Any]:
     """The tree a model binds on a mesh (:meth:`repro_torch.models.Model.bind`):
     from the flat ``params`` (DTensors, or their local blocks), each group
     whose leaves are layer-stacked (first logical axis ``"layers"``) as a
-    :class:`GatheredStack`, every other leaf gathered to full now."""
+    :class:`GatheredStack`, every other leaf read now, as ``plan`` says."""
     tree: Dict[str, Any] = {}
-    stacks: Dict[str, Tuple[dict, dict]] = {}
+    stacks: Dict[str, Tuple[dict, dict, dict]] = {}
     for name, p in params.items():
         local = p.to_local() if isinstance(p, DTensor) else p
         group, _, leaf = name.rpartition(".")
+        take = plan.takes.get(name)
         if axes[name][:1] == ("layers",):
-            blocks, shard = stacks.setdefault(group, ({}, {}))
+            blocks, shard, takes = stacks.setdefault(group, ({}, {}, {}))
             blocks[leaf], shard[leaf] = local, shardings[name]
+            if take is not None:     # a layer's slice: one dim fewer
+                takes[leaf] = (take[0], take[1] - 1, *take[2:])
             continue
         node = tree
         for part in group.split(".") if group else ():
             node = node.setdefault(part, {})
-        node[leaf] = unshard(local, shardings[name])
-    for group, (blocks, shard) in stacks.items():
-        tree[group] = GatheredStack(blocks, shard)
+        node[leaf] = read(local, shardings[name], take)
+    for group, (blocks, shard, takes) in stacks.items():
+        tree[group] = GatheredStack(blocks, shard, takes)
     return tree

@@ -131,12 +131,21 @@ def reduced_dryrun(monkeypatch):
         dist.destroy_process_group()
 
 
+def _attention_flops(cfg, B, S, K):
+    """Products of one layer's attention over ``S`` queries and ``K`` keys."""
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    proj = 2 * B * S * D * (Hq * Dh + 2 * Hkv * Dh) + 2 * B * S * Hq * Dh * D
+    return proj + 2 * (2 * B * Hq * S * K * Dh)
+
+
+def _mlp_flops(cfg, B, S):
+    """Products of one dense layer's MLP."""
+    return 3 * 2 * B * S * cfg.d_model * cfg.d_ff
+
+
 def _layer_flops(cfg, B, S, K):
     """Products of one dense layer over ``S`` queries and ``K`` keys."""
-    D, Hq, Hkv, Dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.d_ff
-    proj = 2 * B * S * D * (Hq * Dh + 2 * Hkv * Dh) + 2 * B * S * Hq * Dh * D
-    attn = 2 * (2 * B * Hq * S * K * Dh)
-    return proj + attn + 3 * 2 * B * S * D * F
+    return _attention_flops(cfg, B, S, K) + _mlp_flops(cfg, B, S)
 
 
 def test_dryrun_record_has_the_reference_keys_and_counted_flops(reduced_dryrun):
@@ -171,18 +180,38 @@ def test_dryrun_record_has_the_reference_keys_and_counted_flops(reduced_dryrun):
 
 
 def test_dryrun_flops_are_per_device(reduced_dryrun):
-    """On 16x16 a rank computes a sixteenth of the batch (the data axis) with
-    whole layers (the model axis shards storage, not products): its flops
-    are the one-rank figure over 16, and its collectives are the gathers of
-    the weights and the gradients' reductions."""
+    """On 16x16 a rank computes a sixteenth of the batch (the data axis) and,
+    on the model axis, a sixteenth of each product the rules split there:
+    the MLP (``d_ff`` 128) and the head (vocabulary 256); reduced stablelm's
+    4 heads do not divide 16, so its attention is whole.  Without remat a
+    layer's products count 3 times and the head's 4, as on one rank.  The
+    all-gathers over ``model`` are the attention weights' alone (wq, wk, wv,
+    wo a layer): none of the MLP's, the head's or the embedding's."""
+    cfg = tconfigs.reduced_config("stablelm_3b")
     cell = ShapeCell("train_s", 32, 32, "train")
-    one = dryrun.run_cell("stablelm_3b", cell, reduced_dryrun("1gpu"), "1gpu")
-    many = dryrun.run_cell("stablelm_3b", cell, reduced_dryrun("16x16"), "16x16")
+    one = dryrun.run_cell("stablelm_3b", cell, reduced_dryrun("1gpu"), "1gpu", remat="none")
+    many = dryrun.run_cell("stablelm_3b", cell, reduced_dryrun("16x16"), "16x16", remat="none")
     assert one["status"] == many["status"] == "ok", (one.get("error"), many.get("error"))
-    assert many["flops"] * 16 == one["flops"]
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    B = 32 // 16
+    want = (3 * L * (_attention_flops(cfg, B, 32, 1024) + _mlp_flops(cfg, B, 32) / 16)
+            + 4 * 2 * B * 32 * D * V / 16)
+    assert many["flops"] == pytest.approx(want, rel=1e-9)
     counts = many["collectives"]["counts"]
-    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
+    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0 and counts["all-reduce"] > 0
     assert many["memory"]["argument_bytes"] < one["memory"]["argument_bytes"]
+
+    mesh = reduced_dryrun("16x16")
+    step, args, shardings = dryrun.build_cell("stablelm_3b", cell, mesh, remat="none")
+    local = [dryrun._localize(a, s, requires_grad=i == 0)
+             for i, (a, s) in enumerate(zip(args, shardings))]
+    with ranks.LeafFlops({}) as rec:
+        step(*local)
+    model = mesh.get_group("model").group_name
+    gathers = [shape for op, group, shape in rec.collectives
+               if op == "all_gather_into_tensor" and group == model]
+    # each attention weight's block: its D rows over data, its heads over model
+    assert gathers == [[cfg.n_heads * cfg.dh // 16, D // 16]] * (4 * L)
 
 
 def test_prefill_state_need_not_divide_the_model_axis(reduced_dryrun):
@@ -272,8 +301,10 @@ def one_rank(tmp_path_factory):
     """The port's trainer without a mesh on the same data."""
     tcfg = TrainConfig(steps=ranks.STEPS, checkpoint_every=0, attn_impl="chunked",
                        checkpoint_dir=str(tmp_path_factory.mktemp("one")))
-    out = Trainer(ranks.config(), ranks.OPT, tcfg, ranks.data_config(), device="cpu").run()
-    return {"losses": np.array(out["losses"]),
+    tr = Trainer(ranks.config(), ranks.OPT, tcfg, ranks.data_config(), device="cpu")
+    grads = ranks.first_grads(tr, ranks.SyntheticLM(ranks.data_config()).batch(0))
+    out = tr.run()
+    return {"losses": np.array(out["losses"]), "grads": grads,
             **{f"p.{k}": v.numpy() for k, v in out["params"].items()}}
 
 
@@ -306,22 +337,49 @@ def _params(run):
     return {k[2:]: v for k, v in run.items() if k.startswith("p.")}
 
 
-def _close(got, want, tol=1e-5):
+#: below this an element's first gradient is rounding noise to Adam (100 x
+#: its eps): see :func:`rounding_noise`
+NOISE = 1e-6
+
+
+def rounding_noise(grads):
+    """Per leaf, the elements whose first gradient (un-meshed) is not 0 but
+    below :data:`NOISE`: terms that cancel, so that the float32 rounding of
+    the terms (the products split over ``model`` sum their parts in another
+    order) is a large share of the sum.  Adam's first step there is
+    ``g / (|g| + 1e-8)``, which such a difference moves by a share of the
+    rate: at 1e-3 by more than 1e-5 on single elements whose gradients were
+    8e-9 to 2.4e-7.  The gradients themselves are held at 1e-5."""
+    return {k: (g != 0) & (np.abs(g) < NOISE) for k, g in grads.items()}
+
+
+def _close(got, want, tol=1e-5, skip=None):
+    """Every leaf of ``got`` within ``tol`` of ``want``, but the elements
+    ``skip`` marks."""
     assert sorted(got) == sorted(want)
     for k in got:
-        np.testing.assert_allclose(got[k], want[k], rtol=tol, atol=tol, err_msg=k)
+        a, b = got[k], want[k]
+        if skip is not None:
+            a, b = a[~skip[k]], b[~skip[k]]
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=k)
 
 
 @pytest.mark.parametrize("run", ["data2", "data2_model2", "pod2_data2"])
 def test_fsdp_on_ranks_matches_one_rank_and_the_reference(run, two, four, one_rank,
                                                           reference_losses):
-    """float32, 3 steps: the losses and every parameter against the port's
-    trainer without a mesh (1e-5), the losses against the reference's
-    un-meshed step (1e-5)."""
-    got = {"data2": two, "data2_model2": four, "pod2_data2": four}[run][run]
+    """float32, 3 steps: the first batch's gradient of every leaf, the losses
+    and every parameter against the port's trainer without a mesh (1e-5), the
+    losses against the reference's un-meshed step (1e-5).  ``data2_model2``
+    computes its share of the heads, the MLP and the vocabulary on the model
+    axis, so its parameters are held but for the elements whose first
+    gradient is rounding noise (:func:`rounding_noise`)."""
+    ranks_out = {"data2": two, "data2_model2": four, "pod2_data2": four}[run]
+    got = ranks_out[run]
+    _close(ranks_out[f"{run}_grads"], one_rank["grads"])
     np.testing.assert_allclose(got["losses"], one_rank["losses"], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got["losses"], reference_losses, rtol=1e-5, atol=1e-5)
-    _close(_params(got), _params(one_rank))
+    skip = rounding_noise(one_rank["grads"]) if run == "data2_model2" else None
+    _close(_params(got), _params(one_rank), skip=skip)
 
 
 def test_microbatches_match_one_batch_on_ranks(two):
