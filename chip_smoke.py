@@ -29,14 +29,16 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          oracle over shapes, dtypes, masks and ragged lengths, at the
                          heads of every served model, and at the heads a rank of a 2- or
                          4-wide model axis computes where those differ (``local_heads``;
-                         tolerance 2e-5 in fp32, 2e-2 in bf16, absolute + relative)
+                         whisper's also at its 1,500-frame encoder step; tolerance 2e-5 in
+                         fp32, 2e-2 in bf16, absolute + relative)
 5. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
                          oracle on both paths (fp32: fma, bf16: mma): the reference's shape
                          sweep, ragged lengths, an initial state, strided views, p-splits,
                          both full-width shapes, operands off 16-byte boundaries (bit for
                          bit against 16-byte copies), every plan against the default
-                         (1e-5), and the inputs it must refuse (tolerance 2e-4 in fp32,
-                         5e-2 in bf16)
+                         (1e-5), the SSM heads a rank of a 2- or 4-wide model axis scans
+                         (``local_heads``, timed in bf16), and the inputs it must refuse
+                         (tolerance 2e-4 in fp32, 5e-2 in bf16)
 6. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
                          weights from a seed): 16 requests through 8 slots; every attention
                          call must have gone through the kernel (launch count); logits are
@@ -69,18 +71,22 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          (a) stablelm_3b at full width and depth, 8 steps at 8 x 512 tokens,
                          the loss must fall; (b) at full width and 2 layers, a run with a
                          failure injected at step 5 restarts from its step-4 checkpoint and
-                         must end bit for bit where an uninterrupted run ends; (c) float32
-                         gradients through ``"chunked"`` against ``"xla"`` within 1e-4
+                         must end bit for bit where an uninterrupted run ends, and the same
+                         for qwen2_moe_a2_7b at 2 layers (4,096 tokens a batch: the MoE
+                         capacity path); (c) float32 gradients through ``"chunked"``
+                         against ``"xla"`` within 1e-4
 15. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
                          ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess at
                          full width and depth beside the train phase's un-meshed run; float32
-                         at 2 layers, meshed against un-meshed within 1e-6 (bit for bit
-                         expected, else the first op that differs is named); a checkpoint
+                         at 2 layers (stablelm_3b and mamba2_370m), meshed against
+                         un-meshed within 1e-6 (bit for bit expected, else the first op
+                         that differs is named); a checkpoint
                          saved under fsdp restored after ``remesh`` bit for bit; no kernel
 16. ``dryrun``           ``python -m repro_torch.launch.dryrun`` on meta tensors (processes of
                          its own, started at train_mesh): every stablelm_3b cell on the
-                         one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k and
-                         stablelm_3b train_4k on 16 x 16; each record's status, flops,
+                         one-rank mesh, qwen2_7b, llama4, mamba2_370m, zamba2_2_7b and
+                         whisper_large_v3 train_4k / decode_32k and stablelm_3b train_4k
+                         on 16 x 16 (11 cells); each record's status, flops,
                          bytes, memory, collectives, errors; each 16 x 16 cell's per-device
                          flops within 1 % of the count from its shapes (a rank's share of
                          the products the model axis splits), printed with its wire and
@@ -633,7 +639,9 @@ ATTN_SHAPES = [
 
 #: the transformer models whose attention a model axis may split by heads
 SPLIT_MODELS = ("stablelm_3b", "gemma3_1b", "qwen2_7b", "granite_8b", "qwen2_moe_a2_7b",
-                "qwen2_vl_2b", "llama4_scout_17b_a16e")
+                "qwen2_vl_2b", "llama4_scout_17b_a16e", "zamba2_2_7b", "whisper_large_v3")
+#: whisper's encoder: its frames, every key visible to every query
+ENCODER_FRAMES = 1500
 
 
 def local_head_shapes():
@@ -661,13 +669,18 @@ def local_head_shapes():
 def local_head_times(local):
     """bf16 times of the kernel at each of a rank's head shapes (prefill:
     a 512-token prompt from position 0 in a 1,024-slot cache; decode: 8
-    serving slots): device ms from CUDA graphs, eager ms, the plain
+    serving slots; for whisper's heads also its encoder step, 1,500 frames
+    every query sees): device ms from CUDA graphs, eager ms, the plain
     version's eager ms, and the card's bound."""
     rows = []
+    T = ENCODER_FRAMES
     for (hq, hkv, dh), where in local.items():
-        for step, (B, Sq, qpos) in (("prefill", (1, 512, np.arange(512)[None])),
-                                    ("decode", (8, 1, serve_lengths()[:, None] - 1))):
-            q, k, v, qp, kp = make_case(B, Sq, 1024, hq, hkv, dh, torch.bfloat16,
+        steps = [("prefill", (1, 512, 1024, np.arange(512)[None])),
+                 ("decode", (8, 1, 1024, serve_lengths()[:, None] - 1))]
+        if any(w.startswith("whisper") for w in where):
+            steps.append(("encoder", (1, T, T, np.full((1, T), T))))
+        for step, (B, Sq, Skv, qpos) in steps:
+            q, k, v, qp, kp = make_case(B, Sq, Skv, hq, hkv, dh, torch.bfloat16,
                                         q_positions=qpos)
 
             def run_kernel():
@@ -775,6 +788,12 @@ def phase_kernel_vs_plain(ctx):
                        make_case(8, 1, 1024, hq, hkv, dh, dtype,
                                  q_positions=serve_lengths()[:, None] - 1),
                        dtype, failures, results, want_path="split" if bf else "fma")
+            if any(w.startswith("whisper") for w in where):
+                T = ENCODER_FRAMES
+                check_case(f"local heads {hq}/{hkv}, Dh {dh}, encoder ({', '.join(where)})",
+                           make_case(1, T, T, hq, hkv, dh, dtype, q_positions=np.full((1, T), T)),
+                           dtype, failures, results, want_path="mma" if bf else "fma",
+                           oracle_kv_heads=2)
     check_case("chunk 8192, an 8,448-token prompt, 40/8",
                make_case(1, 8448, 8448, 40, 8, 128, bf16, q_positions=np.arange(8448)[None]),
                bf16, failures, results, want_path="mma", chunk_attn=8192, oracle_kv_heads=1)
@@ -919,6 +938,41 @@ SSD_SHAPES = [
 SSD_MODELS = {"mamba2_370m": (32, 64, 128), "zamba2_2_7b": (80, 64, 64)}
 
 
+def ssd_local_shapes():
+    """``(H, P, N) -> "arch/width"``: the SSM heads a rank of a 2- or 4-wide
+    model axis scans (``models.mamba2.split_products``): mamba2's 16 and 8,
+    zamba2's 40 and 20."""
+    return {(H // width, P, N): f"{model}/{width}" for model, (H, P, N) in SSD_MODELS.items()
+            for width in (2, 4) if H % width == 0}
+
+
+def ssd_local_times(local):
+    """bf16 times of the kernel at each of a rank's head counts, a 512-token
+    prefill in the model's layout (fp32 dt and y): device ms from CUDA
+    graphs, eager ms, the plain version's eager ms, the byte bound, and the
+    plan's blocks beside the card's SMs (a grid that does not fill them)."""
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (H, P, N), where in local.items():
+        args = make_ssd(1, 512, H, P, N, torch.bfloat16, model_layout=True, decays="model")
+        plan = ssd.choose_plan(1, H, P, N, torch.bfloat16)
+
+        def run():
+            return ops.mamba2_ssd(*args, out_dtype=torch.float32)
+
+        def plain():
+            return ssd.ssd_plain(*args, out_dtype=torch.float32)
+
+        y, h = run()
+        b = ssd_bound(*args, y, h)
+        rows.append({"heads": H, "P": P, "N": N, "model": where, "S": 512, "path": plan.path,
+                     "p_block": plan.p_block, "blocks": plan.blocks, "sms": sms,
+                     "device_ms": min(graph_ms(run) for _ in range(2)), "ms": time_ms(run),
+                     "plain_ms": time_ms(plain, 1, 5), "bound_ms": b["bound_ms"],
+                     "bound_by": b["bound_by"]})
+    return rows
+
+
 def make_ssd(B, S, H, P, N, dtype, seed=0, model_layout=False, decays="reference"):
     """SSD inputs from a seeded numpy generator, on the card.  ``model_layout``
     cuts x, B and C out of one ``(B, S, H*P + 2N)`` tensor as the model does
@@ -1048,6 +1102,17 @@ def phase_ssd_vs_plain(ctx):
                       failures, results, out_dtype=f32)
         check_ssd(f"{model} fp32 S=300", make_ssd(1, 300, H, P, N, f32, model_layout=True,
                                                   decays="model"), failures, results)
+    # a rank's heads on a 2- or 4-wide model axis, in the model's layout (its
+    # heads' x beside B / C), from a zero and from a carried state
+    local = ssd_local_shapes()
+    for (H, P, N), where in local.items():
+        h0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (1, H, P, N), dtype=np.float32) * 0.3).to(DEVICE)
+        for dtype in both:
+            args = make_ssd(1, 300, H, P, N, dtype, model_layout=True, decays="model")
+            for start in (None, h0):
+                check_ssd(f"local heads {H} ({where}), {'h0' if start is not None else 'zero'}",
+                          args, failures, results, h0=start, out_dtype=f32)
     paths = {p: sum(r.get("path") == p for r in results) for p in ssd.PATHS}
     require(all(paths.values()), f"an SSD path was never checked: {paths}")
     emit("ssd_vs_plain", cases=len(results), failed=failures, cases_by_path=paths,
@@ -1056,6 +1121,8 @@ def phase_ssd_vs_plain(ctx):
          max_err_bf16=max(max(r.get("y_vs_oracle", 0), r["y_vs_plain"]) for r in results
                           if r["dtype"] == "bfloat16"),
          tolerance={"float32": 2e-4, "bfloat16": 5e-2, "plans": 1e-5, "misaligned": 0.0},
+         local_heads={f"{H} heads, P {P}, N {N}": where for (H, P, N), where in local.items()},
+         local_heads_timed=ssd_local_times(local) if not failures else "not measured",
          results=results)
     require(not failures, f"SSD kernel disagrees on: {failures}")
 
@@ -1747,10 +1814,64 @@ def phase_serve_whisper(ctx):
 #: the training phase: stablelm_3b, 8 steps of 8 x 512 tokens
 TRAIN = dict(arch="stablelm_3b", seq_len=512, global_batch=8, data_seed=7, steps=8,
              restart_layers=2, checkpoint_every=4, fail_at=5, check_layers=2)
+#: the MoE restart: qwen2_moe_a2_7b at full width and 2 layers, 8 x 512 =
+#: 4,096 tokens a batch (the capacity path); its checkpoint (weights and
+#: float32 moments, about 18 GB) is written twice a run, so the run is short
+MOE_RESTART = dict(arch="qwen2_moe_a2_7b", layers=2, steps=4, checkpoint_every=2, fail_at=3)
 
 
 def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def restart_run(cfg, opt, data, tmp, steps, checkpoint_every, fail_at):
+    """An uninterrupted run and one that fails at ``fail_at`` and restarts
+    from its latest checkpoint, on ``cfg``: both must end bit for bit (loss,
+    parameters, moments).  Returns the record."""
+    import shutil
+
+    from repro_torch.runtime import TrainConfig, Trainer
+
+    runs, ckpt_bytes = {}, {}
+    for name in ("uninterrupted", "interrupted"):
+        armed = {"on": name == "interrupted"}
+
+        def injector(step, armed=armed):
+            if step == fail_at and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("injected node failure")
+
+        # one checkpoint kept, each run's removed after it
+        tr = Trainer(cfg, opt, TrainConfig(steps=steps, checkpoint_every=checkpoint_every,
+                                           checkpoint_dir=os.path.join(tmp, name),
+                                           keep_checkpoints=1, remat="full",
+                                           attn_impl="chunked"),
+                     data, device=DEVICE)
+        runs[name] = tr.run(fault_injector=injector)
+        ckpt_bytes[name] = dir_bytes(tr.ckpt._path(tr.ckpt.latest_step()))
+        shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+        del tr
+    a, b = runs["uninterrupted"], runs["interrupted"]
+    params_equal = all(torch.equal(p, b["params"][k]) for k, p in a["params"].items())
+    moments_equal = all(torch.equal(m, b["opt_state"][part][k]) for part in ("mu", "nu")
+                        for k, m in a["opt_state"][part].items())
+    first = next((k for k, p in a["params"].items() if not torch.equal(p, b["params"][k])),
+                 None)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
+           "checkpoint_every": checkpoint_every, "fail_at": fail_at, "restarts": b["restarts"],
+           "resumed_from_step": fail_at + steps - len(b["losses"]),
+           "losses_uninterrupted": a["losses"], "losses_interrupted": b["losses"],
+           "final_loss_equal": a["losses"][-1] == b["losses"][-1],
+           "params_bit_equal": params_equal, "moments_bit_equal": moments_equal,
+           "first_different_leaf": first, "checkpoint_bytes": ckpt_bytes["uninterrupted"]}
+    require(a["restarts"] == 0 and b["restarts"] == 1, f"train: restarts ({cfg.name})")
+    # steps 0 .. fail_at - 1, then every step from the last checkpoint on, again
+    resumed = fail_at // checkpoint_every * checkpoint_every
+    require(len(b["losses"]) == fail_at + steps - resumed,
+            f"train: the restarted run did not resume from step {resumed} ({cfg.name})")
+    require(a["losses"][-1] == b["losses"][-1] and params_equal and moments_equal,
+            f"train: the restarted run does not end where the uninterrupted run ends: {out}")
+    return out
 
 
 def phase_train(ctx):
@@ -1761,8 +1882,10 @@ def phase_train(ctx):
     fall; (b) full width, 2 of 32 layers (a 32-layer checkpoint with float32
     moments is about 28 GB): a run that fails at step 5 and restarts from
     its step-4 checkpoint must end with the uninterrupted run's loss and
-    parameters and moments, bit for bit; (c) float32 at 2 layers: the
-    gradients through "chunked" against "xla" within 1e-4 of their norm."""
+    parameters and moments, bit for bit, and so must qwen2_moe_a2_7b's at
+    2 layers through the MoE capacity path (:data:`MOE_RESTART`); (c)
+    float32 at 2 layers: the gradients through "chunked" against "xla"
+    within 1e-4 of their norm."""
     import shutil
     import tempfile
 
@@ -1814,49 +1937,22 @@ def phase_train(ctx):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b) restart, bit for bit
+        # (b) restart, bit for bit (a checkpoint of about 4 GB); then the MoE's,
+        # past its capacity path
         cfg2 = dataclasses.replace(cfg, n_layers=TRAIN["restart_layers"])
-        runs, ckpt_bytes = {}, {}
-        for name in ("uninterrupted", "interrupted"):
-            armed = {"on": name == "interrupted"}
-
-            def injector(step, armed=armed):
-                if step == TRAIN["fail_at"] and armed["on"]:
-                    armed["on"] = False
-                    raise RuntimeError("injected node failure")
-
-            # one checkpoint kept (about 4 GB), each run's removed after it
-            tr = Trainer(cfg2, opt, TrainConfig(steps=TRAIN["steps"],
-                                                checkpoint_every=TRAIN["checkpoint_every"],
-                                                checkpoint_dir=os.path.join(tmp, name),
-                                                keep_checkpoints=1, remat="full",
-                                                attn_impl="chunked"),
-                         data, device=DEVICE)
-            runs[name] = tr.run(fault_injector=injector)
-            ckpt_bytes[name] = dir_bytes(tr.ckpt._path(tr.ckpt.latest_step()))
-            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
-            del tr
-        a, b = runs["uninterrupted"], runs["interrupted"]
-        params_equal = all(torch.equal(p, b["params"][k]) for k, p in a["params"].items())
-        moments_equal = all(torch.equal(m, b["opt_state"][part][k]) for part in ("mu", "nu")
-                            for k, m in a["opt_state"][part].items())
-        out["restart"] = {"layers": cfg2.n_layers, "steps": TRAIN["steps"],
-                          "checkpoint_every": TRAIN["checkpoint_every"],
-                          "fail_at": TRAIN["fail_at"], "restarts": b["restarts"],
-                          "resumed_from_step": TRAIN["fail_at"] + TRAIN["steps"]
-                          - len(b["losses"]),
-                          "losses_uninterrupted": a["losses"], "losses_interrupted": b["losses"],
-                          "final_loss_equal": a["losses"][-1] == b["losses"][-1],
-                          "params_bit_equal": params_equal, "moments_bit_equal": moments_equal,
-                          "checkpoint_bytes": ckpt_bytes["uninterrupted"]}
-        require(a["restarts"] == 0 and b["restarts"] == 1, "train: restarts")
-        # steps 0 .. fail_at - 1, then every step from the last checkpoint on, again
-        resumed = TRAIN["fail_at"] // TRAIN["checkpoint_every"] * TRAIN["checkpoint_every"]
-        require(len(b["losses"]) == TRAIN["fail_at"] + TRAIN["steps"] - resumed,
-                f"train: the restarted run did not resume from step {resumed}")
-        require(a["losses"][-1] == b["losses"][-1] and params_equal and moments_equal,
-                "train: the restarted run does not end where the uninterrupted run ends")
-        del runs, a, b
+        out["restart"] = restart_run(cfg2, opt, data, tmp, TRAIN["steps"],
+                                     TRAIN["checkpoint_every"], TRAIN["fail_at"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        m = MOE_RESTART
+        moe = dataclasses.replace(get_config(m["arch"]), n_layers=m["layers"])
+        require(TRAIN["seq_len"] * TRAIN["global_batch"] > transformer.DENSE_PATH_MAX_TOKENS,
+                "train: the MoE restart must take the capacity path")
+        moe_opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=m["steps"])
+        moe_data = dataclasses.replace(data, vocab=moe.vocab)
+        out["restart_moe"] = restart_run(moe, moe_opt, moe_data, tmp, m["steps"],
+                                         m["checkpoint_every"], m["fail_at"])
+        out["restart_moe"]["tokens_a_batch"] = TRAIN["seq_len"] * TRAIN["global_batch"]
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1898,15 +1994,25 @@ TRAIN_MESH = dict(check_layers=2, check_steps=3, elastic_layers=2, elastic_steps
 #: card's one-rank mesh; qwen2_7b and llama4 (its 16 experts take expert
 #: parallelism; both have too few KV heads for the model axis, so their
 #: caches shard the sequence, and heads that 16 does not divide, so their
-#: attention is whole) and stablelm_3b train_4k (every product split) on the
-#: 16 x 16 production mesh
+#: attention is whole), stablelm_3b train_4k (every product split), and
+#: mamba2_370m (SSM heads split, vocabulary whole), zamba2_2_7b (nearly all
+#: split) and whisper_large_v3 (MLP split, its 20 heads whole) train_4k /
+#: decode_32k on the 16 x 16 production mesh
 DRYRUN = {
     "stablelm_1gpu": ["--arch", "stablelm_3b", "--mesh", "1gpu"],
     "qwen2_7b_16x16": ["--arch", "qwen2_7b", "--shape", "train_4k,decode_32k", "--mesh", "single"],
     "llama4_16x16": ["--arch", "llama4_scout_17b_a16e", "--shape", "train_4k,decode_32k",
                      "--mesh", "single"],
     "stablelm_16x16": ["--arch", "stablelm_3b", "--shape", "train_4k", "--mesh", "single"],
+    "mamba2_16x16": ["--arch", "mamba2_370m", "--shape", "train_4k,decode_32k", "--mesh",
+                     "single"],
+    "zamba2_16x16": ["--arch", "zamba2_2_7b", "--shape", "train_4k,decode_32k", "--mesh",
+                     "single"],
+    "whisper_16x16": ["--arch", "whisper_large_v3", "--shape", "train_4k,decode_32k", "--mesh",
+                      "single"],
 }
+#: the 16 x 16 cells the dryrun phase holds to :func:`shape_flops`
+SPLIT_CELLS = 11
 #: the select phase's cell (the train phase's 8 x 512 tokens) and variants
 SELECT = dict(remats=("none", "dots", "full"), microbatches=(1, 4), warmup=1, timed=3)
 RECORD_KEYS = ("arch", "shape", "mesh", "kind", "seq_len", "global_batch", "remat", "fsdp",
@@ -2022,8 +2128,8 @@ def phase_train_mesh(ctx):
     and remat, 8 x 512 tokens (attention by ``--seq-len``, as the reference's
     CLI: ``xla``); reported beside the train phase's un-meshed run.  (b)
     float32 at 2 layers, 3 steps: the meshed trainer (fsdp) against the
-    un-meshed one, within 1e-6 relative; bit for bit expected, and if not,
-    the first op that differs is named.  (c) elastic restore at 2 layers:
+    un-meshed one, within 1e-6 relative, stablelm_3b and mamba2_370m; bit
+    for bit expected, and if not, the first op that differs is named.  (c) elastic restore at 2 layers:
     saved under the fsdp mesh at step 2, restored by a trainer without fsdp
     after ``remesh`` to the mesh: parameters and moments bit for bit.  No
     kernel runs (the kernels are forward only)."""
@@ -2073,33 +2179,39 @@ def phase_train_mesh(ctx):
         data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
                           global_batch=TRAIN["global_batch"], seed=TRAIN["data_seed"])
 
-        # (b) float32, 2 layers: meshed against un-meshed
-        cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_MESH["check_layers"], dtype=torch.float32)
-        trainers, runs = {}, {}
-        for name, kw in (("meshed", dict(mesh=mesh)), ("plain", dict(device=DEVICE))):
-            trainers[name] = Trainer(cfg32, opt, TrainConfig(
-                steps=TRAIN_MESH["check_steps"], checkpoint_every=0, remat="full",
-                attn_impl="chunked", fsdp=name == "meshed",
-                checkpoint_dir=os.path.join(tmp, name)), data, **kw)
-            runs[name] = trainers[name].run()
-        a, b = runs["meshed"], runs["plain"]
-        rel = max(float((_full(p) - b["params"][k]).abs().max()
-                        / b["params"][k].abs().max().clamp_min(1e-30))
-                  for k, p in a["params"].items())
-        loss_rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a["losses"], b["losses"]))
-        bitwise = a["losses"] == b["losses"] and all(
-            torch.equal(_full(p), b["params"][k]) for k, p in a["params"].items())
-        out["float32"] = {"layers": cfg32.n_layers, "steps": TRAIN_MESH["check_steps"],
-                          "losses_meshed": a["losses"], "losses_plain": b["losses"],
-                          "loss_rel_err": loss_rel, "param_rel_err": rel,
-                          "bit_for_bit": bitwise, "tolerance": 1e-6}
-        if not bitwise:
-            out["float32"]["first_different_op"] = first_different_op(
-                trainers["meshed"], trainers["plain"], SyntheticLM(data).batch(0))
-        require(loss_rel <= 1e-6 and rel <= 1e-6, f"train_mesh: float32 {out['float32']}")
-        del trainers, runs, a, b
-        gc.collect()
-        torch.cuda.empty_cache()
+        # (b) float32, 2 layers: meshed against un-meshed, a transformer and a
+        # mamba stack (the plan of a 1-wide axis is WHOLE in both)
+        for key, arch in (("float32", TRAIN["arch"]), ("float32_mamba2", "mamba2_370m")):
+            base32 = get_config(arch)
+            cfg32 = dataclasses.replace(base32, n_layers=TRAIN_MESH["check_layers"],
+                                        dtype=torch.float32)
+            data32 = dataclasses.replace(data, vocab=cfg32.vocab)
+            trainers, runs = {}, {}
+            for name, kw in (("meshed", dict(mesh=mesh)), ("plain", dict(device=DEVICE))):
+                trainers[name] = Trainer(cfg32, opt, TrainConfig(
+                    steps=TRAIN_MESH["check_steps"], checkpoint_every=0, remat="full",
+                    attn_impl="chunked", fsdp=name == "meshed",
+                    checkpoint_dir=os.path.join(tmp, name)), data32, **kw)
+                runs[name] = trainers[name].run()
+            a, b = runs["meshed"], runs["plain"]
+            rel = max(float((_full(p) - b["params"][k]).abs().max()
+                            / b["params"][k].abs().max().clamp_min(1e-30))
+                      for k, p in a["params"].items())
+            loss_rel = max(abs(x - y) / max(abs(y), 1e-30)
+                           for x, y in zip(a["losses"], b["losses"]))
+            bitwise = a["losses"] == b["losses"] and all(
+                torch.equal(_full(p), b["params"][k]) for k, p in a["params"].items())
+            out[key] = {"arch": arch, "layers": cfg32.n_layers,
+                        "steps": TRAIN_MESH["check_steps"], "losses_meshed": a["losses"],
+                        "losses_plain": b["losses"], "loss_rel_err": loss_rel,
+                        "param_rel_err": rel, "bit_for_bit": bitwise, "tolerance": 1e-6}
+            if not bitwise:
+                out[key]["first_different_op"] = first_different_op(
+                    trainers["meshed"], trainers["plain"], SyntheticLM(data32).batch(0))
+            require(loss_rel <= 1e-6 and rel <= 1e-6, f"train_mesh: {key} {out[key]}")
+            del trainers, runs, a, b
+            gc.collect()
+            torch.cuda.empty_cache()
 
         # (c) elastic restore: saved under the fsdp mesh, restored after remesh
         cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_MESH["elastic_layers"])
@@ -2141,7 +2253,8 @@ def _gib(x):
 #: gathered layout, before the model axis split products (every rank gathered
 #: each layer's weights and computed whole layers), as PERF.md section 6
 #: records them: the dry-run of the commit before the split, on the card's
-#: machine
+#: machine (the transformer families' before their split, the ssm, hybrid
+#: and audio families' before theirs)
 GATHERED_16X16 = {
     "qwen2_7b/train_4k": {"flops": 3.888697749536768e15, "wire_gib": 41.32, "temp_gib": 98.741},
     "qwen2_7b/decode_32k": {"flops": 2.18351271936e11, "wire_gib": 26.423, "temp_gib": 20.125},
@@ -2151,6 +2264,17 @@ GATHERED_16X16 = {
                                          "temp_gib": 69.0},
     "stablelm_3b/train_4k": {"flops": 1.67555264151552e15, "wire_gib": 15.197,
                              "temp_gib": 98.982},
+    "mamba2_370m/train_4k": {"flops": 1.71717087461376e14, "wire_gib": 1.322,
+                             "temp_gib": 514.219},
+    "mamba2_370m/decode_32k": {"flops": 6.090522624e9, "wire_gib": 0.909, "temp_gib": 0.726},
+    "zamba2_2_7b/train_4k": {"flops": 1.790219678384128e15, "wire_gib": 12.564,
+                             "temp_gib": 245.71},
+    "zamba2_2_7b/decode_32k": {"flops": 7.5304583168e10, "wire_gib": 25.687,
+                               "temp_gib": 32.658},
+    "whisper_large_v3/train_4k": {"flops": 6.3590781026304e14, "wire_gib": 8.982,
+                                  "temp_gib": 363.895},
+    "whisper_large_v3/decode_32k": {"flops": 2.57703596032e12, "wire_gib": 38.159,
+                                    "temp_gib": 55.703},
 }
 
 
@@ -2168,6 +2292,8 @@ def shape_flops(cfg, kind, seq_len, global_batch, data=16, model=16):
     operands' gradients) but the block's last product, whose output nothing
     in backward reads, so that the recomputation stops before it (``w_down``,
     or an ungated shared expert's ``ws_down``): 3 times; the head 4 times."""
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        return _shape_flops_mamba_audio(cfg, kind, seq_len, global_batch, data, model)
     M, B = model, global_batch // data
     D, Dh, L = cfg.d_model, cfg.dh, cfg.n_layers
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
@@ -2207,11 +2333,106 @@ def shape_flops(cfg, kind, seq_len, global_batch, data=16, model=16):
     return 4 * L * layer - L * last + 4 * head
 
 
+def ssd_flops(B, S, H, P, N, chunk):
+    """The matrix-product flops of ``mamba2.ssd_chunked``'s forward over
+    ``(B, S, H, P, N)`` at ``chunk`` ``Q``, the prompt padded to whole
+    chunks: for every chunk row, the scores ``C Bᵀ`` (``Q·N``), the
+    intra-chunk output (``H·Q·P``), the chunk states and the inter-chunk
+    output (``H·P·N`` each).  Each is one product of two operands, so its
+    backward costs twice its forward."""
+    rows = B * -(-S // chunk) * chunk
+    return 2 * rows * (chunk * N + H * chunk * P + 2 * H * P * N)
+
+
+def ssd_decode_flops(B, H, P, N, conv, taps=4):
+    """The products of one mamba decode step that are not a leaf's: the
+    depthwise conv over its window (``taps`` rows of ``conv`` channels) and
+    ``mamba2.ssd_decode_step``'s ``y = C h``."""
+    return 2 * B * taps * conv + 2 * B * H * P * N
+
+
+def _shape_flops_mamba_audio(cfg, kind, seq_len, global_batch, data, model):
+    """:func:`shape_flops` of the ssm, hybrid and audio families.  A mamba
+    layer: ``in_proj``'s ``z`` / ``x`` / ``dt`` columns and ``out_proj`` a
+    ``model``-th where the SSM heads divide the axis, ``B`` / ``C`` whole,
+    and the SSD's products on the rank's heads (:func:`ssd_flops`;
+    decode: :func:`ssd_decode_flops`).  zamba2's shared block, every
+    ``attn_period`` layers, and whisper's encoder (1,500 frames, keys padded
+    to 2,048), decoder and cross-attention products as a transformer's.
+    Training: the ssm family recomputes nothing (3 times each product, the
+    SSD forward and backward); zamba2 recomputes each group of mamba layers
+    and its shared block (4 times, ``w_down`` 3, the SSD's forward twice);
+    whisper recomputes each decoder layer (4 times, cross-attention's
+    ``xo`` 3) but not the encoder (3 times; ``frame_proj`` twice: its input
+    asks for no gradient); the tied head 4 times."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import specs
+    from repro_torch.models import mamba2
+
+    M, B = model, global_batch // data
+    D, Dh, L = cfg.d_model, cfg.dh, cfg.n_layers
+    g = specs.cell_geometry(cfg, ShapeCell("cell", seq_len, global_batch, kind))
+
+    def part(n):
+        return n // M if n % M == 0 else n
+
+    def pad(n):
+        return -(-n // 1024) * 1024
+
+    S = 1 if kind == "decode" else g["seq"]
+    T = B * S
+    head = 2 * T * D * part(cfg.vocab)
+    hq = hkv = 0
+    if cfg.n_heads:
+        hq, hkv = (cfg.n_heads // M, cfg.n_kv_heads // M) if cfg.n_heads % M == 0 else (
+            cfg.n_heads, cfg.n_kv_heads)
+
+    def attn(rows, q_rows, keys, kv_rows=None):
+        """One attention's products: projections, scores and values."""
+        kv_rows = rows if kv_rows is None else kv_rows
+        return (2 * rows * D * hq * Dh + 2 * kv_rows * D * 2 * hkv * Dh
+                + 2 * rows * hq * Dh * D + 4 * q_rows * hq * keys * Dh)
+
+    mlp, last = 6 * T * D * part(cfg.d_ff), 2 * T * part(cfg.d_ff) * D
+
+    if cfg.family == "audio":
+        frames = g["n_frames"]
+        Te = B * frames
+        enc = attn(Te, Te, pad(frames)) + 6 * Te * D * part(cfg.d_ff)
+        keys = pad(specs.decode_inputs(cfg, ShapeCell("c", seq_len, global_batch, kind))[1]
+                   ["kv"][0].shape[2]) if kind == "decode" else pad(S)
+        dec = attn(T, T, keys) + attn(T, T, pad(frames), kv_rows=Te) + mlp
+        xo = 2 * T * hq * Dh * D
+        if kind == "decode":
+            return L * dec + head
+        return 2 * 2 * Te * D * D + 3 * L * enc + 4 * L * dec - L * xo + 4 * head
+
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    h = part(H)
+    proj = 2 * T * D * (2 * h * P + 2 * N + h) + 2 * T * h * P * D
+    apps = cfg.n_layers // cfg.attn_period if cfg.family == "hybrid" else 0
+    period = cfg.attn_period or L + 1
+    if kind == "decode":
+        keys = pad(seq_len)
+        shared = attn(T, T, keys) + mlp
+        conv = ssd_decode_flops(B, h, P, N, h * P + 2 * N, mamba2.D_CONV)
+        return L * (proj + conv) + apps * shared + head
+    fwd = ssd_flops(B, S, h, P, N, cfg.ssm_chunk)
+    both = 3 * fwd
+    if cfg.family == "ssm":
+        return 3 * L * proj + L * both + 4 * head
+    grouped = apps * period
+    shared = attn(T, T, pad(S)) + mlp
+    return (grouped * (4 * proj + fwd + both) + (L - grouped) * (3 * proj + both)
+            + apps * (4 * shared - last) + 4 * head)
+
+
 def phase_dryrun(ctx):
     """``python -m repro_torch.launch.dryrun`` on meta tensors, in processes
     of their own (started by :func:`start_dryruns`): every stablelm_3b cell on
     the card's one-rank mesh, qwen2_7b and llama4 train_4k / decode_32k and
-    stablelm_3b train_4k on 16 x 16.  Each record's status, flops, bytes,
+    stablelm_3b train_4k, and mamba2_370m, zamba2_2_7b and whisper_large_v3
+    train_4k / decode_32k on 16 x 16.  Each record's status, flops, bytes,
     per-device memory and collective bytes; a record that failed is printed
     with its error.  Each 16 x 16 cell must run, and its flops must be
     within 1 % of :func:`shape_flops`; ``split_16x16`` prints its per-device
@@ -2256,7 +2477,8 @@ def phase_dryrun(ctx):
     emit("dryrun", card=ctx.get("card"), sweeps=summary, split_16x16=split,
          errors=[f"{r['arch']}/{r['shape']}/{r['mesh']}: {r['error']}" for s in summary.values()
                  for r in s["records"] if r["status"] == "error"])
-    require(not off and len(split) == 5, f"dryrun: 16 x 16 cells off their shapes' flops: {off}")
+    require(not off and len(split) == SPLIT_CELLS,
+            f"dryrun: 16 x 16 cells off their shapes' flops: {off}")
 
 
 def phase_select(ctx):

@@ -9,11 +9,13 @@ dispatches:
 * ``flops`` — **per device**: ``FlopCounterMode`` over rank 0's local
   tensors.  The port computes on local tensors: a rank's rows of the batch
   and, on the ``model`` axis, its share of each product the rules shard
-  there (whole heads, ``ff``, its experts or its part of ``ff_expert``, its
-  rows of the vocabulary; :mod:`repro_torch.sharding`), the rest whole
-  (attention where ``n_heads`` does not divide the axis, the router).  So
-  this is the work of one device; counted on DTensors it would be the
-  global figure;
+  there, in every family (whole heads, ``ff``, its experts or its part of
+  ``ff_expert``, a mamba layer's SSM heads, its rows of the vocabulary;
+  :mod:`repro_torch.sharding`), the rest whole (attention where
+  ``n_heads`` does not divide the axis, as whisper's 20 heads on 16; a
+  vocabulary the axis does not divide, as mamba2's and whisper's on 16;
+  the router; a mamba layer's ``B`` / ``C`` columns).  So this is the work
+  of one device; counted on DTensors it would be the global figure;
 * ``bytes_accessed`` — the input and output bytes of every aten op on the
   local tensors (views excluded: they move nothing).  In eager PyTorch every
   op reads and writes device memory, so this is the un-fused step's traffic;
@@ -29,9 +31,12 @@ dispatches:
   ``wire_bytes`` of the functional collectives the step issues
   (``torch.ops._c10d_functional``), read from each one's tensors, with the
   reference's ring formulas: the gathers of the weights over the data axes
-  (fsdp) and, over ``model``, of the leaves whose product stays whole; the
-  all-reduces that sum a split region's parts (activations forward, their
-  gradients backward); the gradients' reduce-scatters over the data axes.
+  (fsdp) and, over ``model``, of the leaves whose product stays whole and of
+  the leaves a rank reads in pieces (a mamba layer's ``in_proj`` / ``conv``,
+  whose ``B`` / ``C`` columns every rank reads); the all-reduces that sum a
+  split region's parts (activations forward, their gradients backward, the
+  gated norm's sums of squares both ways); the gradients' reduce-scatters
+  over the data axes.
   On the ``1gpu`` mesh every axis is 1 wide, no collective is issued, and
   every figure is 0.
 
@@ -42,8 +47,13 @@ of its own.  Prefill and decode cells use ``attn_impl="chunked"``, as the
 reference does: the CUDA kernels cannot run on ``meta``.  A decode cell's
 cache comes in the layout of :func:`repro_torch.launch.specs.state_shardings`;
 where the plan splits the heads a rank keeps (or, from a cache whose
-sequence the rules shard, cuts) the K / V heads it computes, and its greedy
-token is the argmax across the vocabulary's shards.  A cell that fails is
+sequence the rules shard, cuts) the K / V heads it computes and, in a mamba
+stack, the SSM heads of its state; its conv state is gathered and cut to
+its channels (its heads' ``x`` and all of ``B`` / ``C``, which the rules'
+cut of ``conv_dim`` crosses).  After the step the state goes back to the
+rules' blocks: the ranks' heads and ``x`` channels gathered over ``model``
+where the block is not the rank's own, then cut.  Its greedy token is the
+argmax across the vocabulary's shards.  A cell that fails is
 recorded with ``status: "error"`` and its message; the sweep goes on.
 
 Usage::
@@ -72,7 +82,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, ShapeCell, get_config, shape_cells
-from ..models import Model, split_products
+from ..models import Model, rank_state, split_products, state_heads_dim, whole_state
 from ..models.common import unrolled_scans
 from ..optim import AdamWConfig
 from ..runtime.trainer import train_step
@@ -247,9 +257,9 @@ def build_cell(
     @torch.no_grad()
     def serve_step(params, tokens, state):
         with model.bind(gathered_tree(params, p_shard, axes, plan), plan):
-            h, new_state = model.decode_step(tokens, _whole(state, st_shard, plan))
+            h, new_state = model.decode_step(tokens, _whole(cfg, state, st_shard, plan))
             out = model.greedy(h[:, -1:])
-        return out, _blocks(new_state, st_shard, plan)
+        return out, _blocks(cfg, new_state, st_shard, plan)
 
     return (
         serve_step,
@@ -258,47 +268,38 @@ def build_cell(
     )
 
 
-def _own_heads(key, plan) -> bool:
-    """Whether the plan splits the heads, so that a rank's cache holds the
-    K / V heads it computes."""
-    return key == "kv" and plan.splits("kv_heads")
-
-
 def _per_key(fn, state, shardings, plan):
     """``fn(key, leaf, sharding, keep)`` for every leaf of ``state``: ``keep``
-    is the batch dim, and a cache's heads dim where the rules' block of it
-    is the K / V heads the rank computes."""
+    is the batch dim, and the heads dim where the rules' block of it is the
+    heads the rank computes (:func:`repro_torch.models.state_heads_dim`)."""
     out = {}
     for k, v in state.items():
         leaves, shards = (v, shardings[k]) if isinstance(v, tuple) else ((v,), (shardings[k],))
         got = []
         for x, s in zip(leaves, shards):
             keep = (specs.STATE_BATCH_DIM[k],)
-            if _own_heads(k, plan) and s.tensor_dim("model") == 3:
-                keep += (3,)
+            own = state_heads_dim(k, plan)
+            if own is not None and s.tensor_dim("model") == own:
+                keep += (own,)
             got.append(fn(k, x, s, keep))
         out[k] = tuple(got) if isinstance(v, tuple) else got[0]
     return out
 
 
-def _whole(state, shardings, plan):
-    """The decode state as a rank computes with it: its rows, whole along
-    every other dim but a cache's heads, which are the K / V heads it
-    computes where the plan splits the heads (cut from the gathered cache
-    where the rules shard its sequence instead)."""
-    def whole(k, x, s, keep):
-        x = unshard(x, s, keep)
-        if _own_heads(k, plan) and 3 not in keep:
-            k0, k1 = plan.ranges["kv_heads"]
-            x = x.narrow(3, k0, k1 - k0)
-        return x
-
-    return _per_key(whole, state, shardings, plan)
+def _whole(cfg, state, shardings, plan):
+    """The decode state as a rank computes with it
+    (:func:`repro_torch.models.rank_state`): its rows, whole along every
+    other dim but its heads and a conv state's channels, which are the ones
+    it computes (cut from the gathered leaf where the rules' block is not)."""
+    return _per_key(lambda k, x, s, keep: rank_state(cfg, k, unshard(x, s, keep), plan, keep),
+                    state, shardings, plan)
 
 
-def _blocks(state, shardings, plan):
-    """The inverse: this rank's blocks of the state it computed with."""
-    return _per_key(lambda k, x, s, keep: reshard(x, s, keep), state, shardings, plan)
+def _blocks(cfg, state, shardings, plan):
+    """The inverse: this rank's blocks of the state it computed with, in the
+    rules' layout (:func:`repro_torch.models.whole_state`, then cut)."""
+    return _per_key(lambda k, x, s, keep: reshard(whole_state(cfg, k, x, plan, keep), s, keep),
+                    state, shardings, plan)
 
 
 def _sharded_specs(shardings, prefix=""):

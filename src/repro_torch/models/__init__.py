@@ -39,7 +39,6 @@ import dataclasses
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
@@ -99,13 +98,59 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
 
 def split_products(cfg: ModelConfig) -> Dict[str, Product]:
     """The products the ``model`` axis may split, with the leaves each reads
-    (:func:`repro_torch.sharding.model_axis` turns them into a rank's plan):
-    the transformer families' (:func:`transformer.split_products`); none for
-    the ssm, hybrid and audio families, which compute whole on the ``model``
-    axis (mamba's ``in_proj`` concatenates z / x / B / C / dt along ``ff``,
-    so a column split cuts across them)."""
+    (:func:`repro_torch.sharding.model_axis` turns them into a rank's plan),
+    each family's own: the transformers' heads, ``ff``, experts and
+    vocabulary (:func:`transformer.split_products`); the ssm family's SSM
+    heads (:func:`mamba2.split_products`) and tied vocabulary; zamba2's SSM
+    heads, its shared block's heads and ``ff``, and the vocabulary
+    (:func:`hybrid.split_products`); whisper's heads (encoder, decoder and
+    cross-attention alike), ``ff`` and vocabulary
+    (:func:`encdec.split_products`)."""
     _require_ported(cfg)
-    return transformer.split_products(cfg) if cfg.family in _TRANSFORMER else {}
+    if cfg.family in _TRANSFORMER:
+        return transformer.split_products(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.split_products(cfg)
+    if cfg.family == "audio":
+        return encdec.split_products(cfg)
+    return {**mamba2.split_products(cfg), "vocab": Product({"embed": 0}, cfg.vocab)}
+
+
+#: the decode state's leaves that hold heads a plan may split: the dim of
+#: the heads, the product that splits them and the config field counting them
+_STATE_HEADS = {"kv": (3, "kv_heads", "n_kv_heads"), "ssm": (2, "ssm_heads", "ssm_heads")}
+
+
+def state_heads_dim(key: str, plan: ModelAxis) -> Optional[int]:
+    """The dim of decode-state leaf ``key``'s heads where ``plan`` splits
+    them, so that a rank's state holds the heads it computes; else None."""
+    dim, product, _ = _STATE_HEADS.get(key, (None, None, None))
+    return dim if dim is not None and plan.splits(product) else None
+
+
+def rank_state(cfg: ModelConfig, key: str, x: torch.Tensor, plan: ModelAxis,
+               kept: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Decode-state leaf ``key`` as this rank computes with it, from ``x``,
+    whole along every dim but ``kept`` (there, this rank's block as the
+    rules lay it): the heads it computes where ``plan`` splits them, and a
+    conv state's channels (:func:`mamba2.rank_conv`)."""
+    dim = state_heads_dim(key, plan)
+    if dim is not None and dim not in kept:
+        h0, h1 = plan.ranges[_STATE_HEADS[key][1]]
+        x = x.narrow(dim, h0, h1 - h0)
+    return mamba2.rank_conv(cfg, x, plan) if key == "conv" else x
+
+
+def whole_state(cfg: ModelConfig, key: str, x: torch.Tensor, plan: ModelAxis,
+                kept: Tuple[int, ...] = ()) -> torch.Tensor:
+    """The inverse of :func:`rank_state`: the leaf whole along every dim but
+    ``kept`` again, the ranks' heads and conv channels gathered over the
+    ``model`` axis."""
+    dim = state_heads_dim(key, plan)
+    if dim is not None and dim not in kept:
+        _, product, count = _STATE_HEADS[key]
+        x = plan.gather(x, product, dim, units=getattr(cfg, count))
+    return mamba2.whole_conv(cfg, x, plan) if key == "conv" else x
 
 
 def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
@@ -203,9 +248,10 @@ class Model(nn.Module):
         tree with the reference's keys) instead of the model's own parameters:
         the meshed trainer and the dry-run pass each rank's weights
         (:func:`repro_torch.sharding.gathered_tree`) to a model whose own
-        storage is ``meta``.  The transformer families then compute this
-        rank's share of the products that ``plan`` (the one the tree was read
-        by, :func:`repro_torch.sharding.model_axis`) splits."""
+        storage is ``meta``.  Every family then computes this rank's share
+        of the products that ``plan`` (the one the tree was read by,
+        :func:`repro_torch.sharding.model_axis`) splits, and its decode
+        state holds that share's heads."""
         prev = self._bound, self._plan
         self._bound, self._plan = params, plan
         try:
@@ -239,9 +285,9 @@ class Model(nn.Module):
         them none is kept (training).  No layer is recomputed under ``remat``,
         as in the reference."""
         cfg, params = self.cfg, self.params
-        h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+        h = transformer.embed(params["embed"], tokens, self._plan).to(cfg.dtype)
         h = mamba2.run_stack(cfg, params["mamba"], h, range(cfg.n_layers), ssm_states,
-                             conv_states, decode, self.ssd_impl)
+                             conv_states, decode, self.ssd_impl, self._plan)
         return rms_norm(h, params["final_ln"]), {"ssm": ssm_states, "conv": conv_states}
 
     def train_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -264,21 +310,28 @@ class Model(nn.Module):
             return transformer.lm_loss(cfg, params, h, targets, tp=self._plan)
         if cfg.family == "hybrid":
             h, _ = hybrid.forward(cfg, params, tokens, attn_impl=self.attn_impl,
-                                  ssd_impl=self.ssd_impl, remat=self.remat)
-            return hybrid.lm_head_loss(cfg, params, h, targets)
+                                  ssd_impl=self.ssd_impl, remat=self.remat, tp=self._plan)
+            return hybrid.lm_head_loss(cfg, params, h, targets, tp=self._plan)
         if cfg.family == "ssm":
             h, _ = self._ssm_forward(tokens)
         else:   # audio
-            enc = encdec.encode(cfg, params, batch["frame_embeds"], self.attn_impl)
-            h = encdec.decode_train(cfg, params, enc, tokens, self.attn_impl, self.remat)
+            enc = encdec.encode(cfg, params, batch["frame_embeds"], self.attn_impl, self._plan)
+            h = encdec.decode_train(cfg, params, enc, tokens, self.attn_impl, self.remat,
+                                    self._plan)
         tied = dataclasses.replace(cfg, tie_embeddings=True)
-        return transformer.lm_loss(tied, {"embed": params["embed"]}, h, targets)
+        return transformer.lm_loss(tied, {"embed": params["embed"]}, h, targets, tp=self._plan)
 
     def _hybrid_kv(self, batch: int, max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Zeroed ``(apps, B, max_len, Hkv, Dh)`` caches in ``cfg.dtype``, as the
         reference's hybrid keeps them (the dense family's are bfloat16)."""
+        return self._kv(hybrid.n_attn_applications(self.cfg), batch, max_len)
+
+    def _kv(self, n: int, batch: int, max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed ``(n, B, max_len, Hkv, Dh)`` caches in ``cfg.dtype`` of the
+        K / V heads this rank computes (all of them off a mesh)."""
         cfg = self.cfg
-        shape = (hybrid.n_attn_applications(cfg), batch, max_len, cfg.n_kv_heads, cfg.dh)
+        k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
+        shape = (n, batch, max_len, k1 - k0, cfg.dh)
         return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
@@ -298,21 +351,21 @@ class Model(nn.Module):
         B, S = tokens.shape
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         if cfg.family == "audio":
-            enc = encdec.encode(cfg, self.params, batch["frame_embeds"], self.attn_impl)
-            shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.dh)
-            kv = (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                  torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+            enc = encdec.encode(cfg, self.params, batch["frame_embeds"], self.attn_impl,
+                                self._plan)
+            kv = self._kv(cfg.n_layers, B, max_len)
             return enc, {"kv": kv, "enc": enc, "pos": torch.zeros_like(pos)}
         if cfg.family == "ssm":
-            h, state = self._ssm_forward(tokens, *mamba2.init_states(cfg, B, self.device))
+            h, state = self._ssm_forward(tokens, *mamba2.init_states(cfg, B, self.device,
+                                                                     self._plan))
             return h, {**state, "pos": pos}
         if cfg.family == "hybrid":
-            ssm, conv = mamba2.init_states(cfg, B, self.device)
+            ssm, conv = mamba2.init_states(cfg, B, self.device, self._plan)
             h, state = hybrid.forward(
                 cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
                 kv_caches=self._hybrid_kv(B, max_len),
                 cache_positions=self._cache_positions(B, max_len),
-                ssm_states=ssm, conv_states=conv,
+                ssm_states=ssm, conv_states=conv, tp=self._plan,
             )
             return h, {**state, "pos": pos}
         k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
@@ -341,14 +394,15 @@ class Model(nn.Module):
         cache_pos = self._cache_positions(B, kv[0].shape[2])
         if cfg.family == "audio":
             h, kv = encdec.decode_step(cfg, self.params, state["enc"], tokens,
-                                       state["pos"][:, None], kv, cache_pos, self.attn_impl)
+                                       state["pos"][:, None], kv, cache_pos, self.attn_impl,
+                                       self._plan)
             return h, {"kv": kv, "enc": state["enc"], "pos": pos}
         if cfg.family == "hybrid":
             h, new = hybrid.forward(
                 cfg, self.params, tokens, positions=state["pos"][:, None],
                 attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
                 cache_positions=cache_pos, ssm_states=state["ssm"],
-                conv_states=state["conv"], decode=True,
+                conv_states=state["conv"], decode=True, tp=self._plan,
             )
             return h, {**new, "pos": pos}
         h, kv = transformer.forward(
@@ -359,10 +413,11 @@ class Model(nn.Module):
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         """The logits this rank computes: its block of the vocabulary where
-        the plan splits it."""
-        if self.cfg.family in _TRANSFORMER:   # lm_head, or embed.T where tied
+        the plan splits it (``lm_head``, or ``embed.T`` where tied: the ssm,
+        hybrid and audio families tie theirs)."""
+        if self.cfg.family in _TRANSFORMER:
             return transformer.lm_head(self.cfg, self.params, h)
-        return h @ self.params["embed"].T.to(h.dtype)   # ssm, hybrid and audio tie their embedding
+        return h @ self.params["embed"].T.to(h.dtype)
 
     @torch.no_grad()
     def logits(self, h: torch.Tensor) -> torch.Tensor:

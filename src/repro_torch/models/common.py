@@ -85,12 +85,19 @@ def trunc_normal(
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in fp32 with the scale stored as an offset from one (``1 + w``)."""
+def _mean_of_last(sq: torch.Tensor) -> torch.Tensor:
+    return sq.mean(dim=-1, keepdim=True)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             mean: Callable[[torch.Tensor], torch.Tensor] = _mean_of_last) -> torch.Tensor:
+    """RMS norm in fp32 with the scale stored as an offset from one (``1 + w``).
+    ``mean`` takes the squares to their mean over the channels: over the
+    last dim, or, where ``x`` holds a rank's part of the channels, summed
+    over the ranks that hold the others."""
     dtype = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
+    y = x * torch.rsqrt(mean(x.square()) + eps)
     return (y * (1.0 + scale.float())).to(dtype)
 
 

@@ -6,6 +6,12 @@ whose weights are SHARED across all applications.  Each application still
 needs its own KV cache (activations differ), so caches are stacked over
 applications, not layers.  Where the reference scans, the port loops over
 the stacked leading axis.
+
+On a mesh whose ``model`` axis is wider than 1 (:func:`split_products`) the
+mamba layers split by SSM heads (:mod:`repro_torch.models.mamba2`), the
+shared block as a transformer block does (whole heads, ``ff``), and the
+tied vocabulary by rows; each application's KV cache holds a rank's K / V
+heads.
 """
 
 from __future__ import annotations
@@ -15,14 +21,15 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..sharding import WHOLE, ModelAxis, Product
+from . import mamba2
 from .attention import attention
 from .common import (
     apply_rope, check_remat, remat_call, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
 )
 from .mamba2 import fill_mamba_layers, init_states, layer_axes, layer_shapes, run_stack
-from .transformer import ModelConfig, _cache_index, check_cache_room, lm_loss
+from .transformer import ModelConfig, _cache_index, check_cache_room, embed, lm_loss
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -77,6 +84,23 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     return axes
 
 
+def split_products(cfg: ModelConfig) -> Dict[str, Product]:
+    """The products the ``model`` axis splits: the mamba stack's SSM heads
+    (:func:`repro_torch.models.mamba2.split_products`); the shared block's
+    query heads (``wq`` by columns, ``wo`` by rows) and the K / V heads
+    their groups read, its MLP over ``ff``; the tied vocabulary's rows."""
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    return {
+        **mamba2.split_products(cfg),
+        "heads": Product({"shared_attn.wq": 1, "shared_attn.wo": 0}, Hq, Dh),
+        "kv_heads": Product({"shared_attn.wk": 1, "shared_attn.wv": 1}, Hkv, Dh,
+                            read_by=("heads", Hq // Hkv)),
+        "ff": Product({"shared_attn.w_gate": 1, "shared_attn.w_up": 1, "shared_attn.w_down": 0},
+                      cfg.d_ff),
+        "vocab": Product({"embed": 0}, cfg.vocab),
+    }
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     L = cfg.n_layers
     shapes: Dict[str, Tuple[int, ...]] = {"embed": (cfg.vocab, cfg.d_model)}
@@ -97,18 +121,21 @@ def _shared_attn_block(
     cache_positions: Optional[torch.Tensor] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """One application of the shared block; returns the new hidden states.
     ``kv_cache`` is this application's ``(B, Skv, Hkv, Dh)`` pair and is
     **updated in place** at ``positions[:, 0]`` (the reference returns a new
     pair).  ``rope`` and ``cache_index`` are what :func:`forward` computes
-    once for every application; a lone call works them out itself."""
+    once for every application; a lone call works them out itself.  Under
+    ``tp`` the attention of a rank's heads (its cache holds their K / V
+    heads) and its part of the MLP are summed over the ``model`` axis."""
     B, S, _ = h.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    x = rms_norm(h, sp["ln1"])
-    q = (x @ sp["wq"]).reshape(B, S, Hq, Dh)
-    k = (x @ sp["wk"]).reshape(B, S, Hkv, Dh)
-    v = (x @ sp["wv"]).reshape(B, S, Hkv, Dh)
+    Dh = cfg.dh
+    x = tp.enter(rms_norm(h, sp["ln1"]), "heads")
+    q = (x @ sp["wq"]).reshape(B, S, -1, Dh)
+    k = (x @ sp["wk"]).reshape(B, S, -1, Dh)
+    v = (x @ sp["wv"]).reshape(B, S, -1, Dh)
     q = apply_rope(q, positions, cfg.rope_theta, sin_cos=rope)
     k = apply_rope(k, positions, cfg.rope_theta, sin_cos=rope)
     if kv_cache is not None:
@@ -120,9 +147,10 @@ def _shared_attn_block(
     else:
         k_att, v_att, kv_pos = k, v, positions
     o = attention(q, k_att, v_att, positions, kv_pos, impl=attn_impl)
-    h = h + (o.reshape(B, S, -1) @ sp["wo"]).to(h.dtype)
-    x = rms_norm(h, sp["ln2"])
-    return h + (swiglu(x @ sp["w_gate"], x @ sp["w_up"]) @ sp["w_down"]).to(h.dtype)
+    h = h + tp.leave(o.reshape(B, S, -1) @ sp["wo"], "heads").to(h.dtype)
+    x = tp.enter(rms_norm(h, sp["ln2"]), "ff")
+    y = tp.leave(swiglu(x @ sp["w_gate"], x @ sp["w_up"]) @ sp["w_down"], "ff")
+    return h + y.to(h.dtype)
 
 
 def forward(
@@ -138,6 +166,7 @@ def forward(
     conv_states: Optional[torch.Tensor] = None,  # (L, B, D_CONV-1, conv_dim)
     decode: bool = False,
     remat: str = "none",
+    tp: ModelAxis = WHOLE,
 ) -> Tuple[torch.Tensor, State]:
     """Returns (final hidden states, ``{"kv", "ssm", "conv"}``).
 
@@ -151,11 +180,13 @@ def forward(
     ``ValueError`` where the reference clamps.  ``remat`` ``dots`` / ``full``
     recompute each group of mamba layers and its shared-block application in
     backward, as the reference checkpoints its group body (the tail layers,
-    as there, are not).
+    as there, are not).  ``tp`` is the plan of this rank's share of the
+    products (:func:`split_products`); the states and caches passed in are
+    then a rank's.
     """
     check_remat(remat)
     B, S = tokens.shape
-    h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    h = embed(params["embed"], tokens, tp).to(cfg.dtype)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     period = cfg.attn_period or (cfg.n_layers + 1)
@@ -170,24 +201,26 @@ def forward(
 
     def group(h, app):
         h = run_stack(cfg, layers, h, range(app * period, (app + 1) * period),
-                      ssm_states, conv_states, decode, ssd_impl)
+                      ssm_states, conv_states, decode, ssd_impl, tp)
         cache = None if kv_caches is None else (kv_caches[0][app], kv_caches[1][app])
         return _shared_attn_block(cfg, params["shared_attn"], h, positions, attn_impl,
                                   kv_cache=cache, cache_positions=cache_positions,
-                                  rope=rope, cache_index=cache_index)
+                                  rope=rope, cache_index=cache_index, tp=tp)
 
     for app in range(apps):
         h = remat_call(group, remat, h, app)
     h = run_stack(cfg, layers, h, range(apps * period, cfg.n_layers),
-                  ssm_states, conv_states, decode, ssd_impl)
+                  ssm_states, conv_states, decode, ssd_impl, tp)
     h = rms_norm(h, params["final_ln"])
     return h, {"kv": kv_caches, "ssm": ssm_states, "conv": conv_states}
 
 
 def lm_head_loss(
-    cfg: ModelConfig, params: Params, h: torch.Tensor, targets: torch.Tensor, chunk: int = 512
+    cfg: ModelConfig, params: Params, h: torch.Tensor, targets: torch.Tensor, chunk: int = 512,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """The chunked cross-entropy of :func:`repro_torch.models.transformer.lm_loss`
-    through the tied head (``embed.T``): zamba2 ties its embedding."""
+    through the tied head (``embed.T``): zamba2 ties its embedding.
+    Vocab-parallel where ``tp`` splits the vocabulary."""
     tied = dataclasses.replace(cfg, tie_embeddings=True)
-    return lm_loss(tied, {"embed": params["embed"]}, h, targets, chunk=chunk)
+    return lm_loss(tied, {"embed": params["embed"]}, h, targets, chunk=chunk, tp=tp)

@@ -14,6 +14,13 @@ prompt through one of two interchangeable paths:
 
 Decode is the O(1) recurrent update ``h = dA h + dt B x; y = C h`` in plain
 PyTorch (:func:`ssd_decode_step`): the reference has no kernel for it.
+
+On a mesh whose ``model`` axis is wider than 1, a layer is split by SSM
+heads (:func:`split_products`): a rank computes its heads' ``z``, ``x`` and
+``dt`` columns of ``in_proj``, and ``B`` / ``C`` whole (one group, which
+every head reads), its heads' conv channels, scan and gated norm (the norm's
+sum of squares summed over the axis), and its rows of ``out_proj``, summed
+over the axis.  Its decode states hold its heads and its conv channels.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import WHOLE, ModelAxis, Product, Segments
 from .common import layer_params, rms_norm, trunc_normal_
 
 D_CONV = 4  # depthwise causal conv width (mamba2 default)
@@ -80,6 +88,24 @@ def layer_axes() -> Dict[str, Tuple[Optional[str], ...]]:
         "out_proj": ("ff", "embed"),
         "ln": ("embed",),
     }
+
+
+def split_products(cfg, prefix: str = "mamba.") -> Dict[str, Product]:
+    """The product the ``model`` axis splits in a stack of mamba layers
+    (leaves ``prefix + name``, a leading layer dim): the SSM heads.  A rank
+    reads its heads' columns of ``in_proj`` (``z`` and ``x``, ``P`` a head;
+    ``dt``, one a head) and all of ``B`` / ``C``, the same of ``conv_w`` /
+    ``conv_b`` (``x | B | C``), its heads of ``a_log`` / ``d_skip`` /
+    ``dt_bias`` (which the rules replicate), and its blocks of ``norm`` and
+    ``out_proj`` as they lie."""
+    P, BC = cfg.ssm_head_dim, 2 * N_GROUPS * cfg.ssm_state
+    proj = ((P, True), (P, True), (BC, False), (1, True))    # z | x | B C | dt
+    conv = ((P, True), (BC, False))                          # x | B C
+    head = ((1, True),)
+    leaves: Dict[str, object] = {"in_proj": Segments(2, proj), "conv_w": Segments(2, conv),
+                                 "conv_b": Segments(1, conv), "norm": 1, "out_proj": 1}
+    leaves.update({k: Segments(1, head) for k in FP32_LEAVES})
+    return {"ssm_heads": Product({prefix + k: d for k, d in leaves.items()}, cfg.ssm_heads)}
 
 
 def leaf_dtype(leaf: str, dtype: torch.dtype) -> torch.dtype:
@@ -160,13 +186,16 @@ def ssd_chunked(
     da_total = da_cum[:, :, -1:, :]            # (B, nc, 1, H)
 
     # ---- intra-chunk (quadratic dual form) ---------------------------------
+    # each contraction is one einsum of two operands, after element-wise
+    # products: its matrix product is then the same whatever einsum path
+    # PyTorch would pick for more operands
     L = torch.exp(_segsum(da.permute(0, 1, 3, 2)))        # (B, nc, H, Q, Q)
     scores = torch.einsum("bcqn,bckn->bcqk", cf, bf)      # (B, nc, Q, Q)
-    y_intra = torch.einsum("bchqk,bcqk,bckh,bckhp->bcqhp", L, scores, dtf, xf)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", L * scores[:, :, None], dtf[..., None] * xf)
 
     # ---- chunk states ------------------------------------------------------
     decay_to_end = torch.exp(da_total - da_cum)           # (B, nc, Q, H)
-    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", bf, dtf * decay_to_end, xf)
+    states = torch.einsum("bcqn,bcqhp->bchpn", bf, (dtf * decay_to_end)[..., None] * xf)
 
     # ---- inter-chunk recurrence -------------------------------------------
     chunk_decay = torch.exp(da_total[:, :, 0, :])         # (B, nc, H)
@@ -181,7 +210,7 @@ def ssd_chunked(
     h_prev = torch.stack(h_prevs, dim=1)                  # (B, nc, H, P, N)
 
     decay_from_start = torch.exp(da_cum)                  # (B, nc, Q, H)
-    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", cf, decay_from_start, h_prev)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cf, h_prev) * decay_from_start[..., None]
 
     y = (y_intra + y_inter).reshape(B, nc * Q, H, P)[:, :S]
     return y, h
@@ -197,7 +226,7 @@ def ssd_decode_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     dtf = dt.float()
     da = torch.exp(dtf * a.float()[None, :])  # (B, H)
-    dbx = torch.einsum("bh,bn,bhp->bhpn", dtf, bm.float(), x.float())
+    dbx = (dtf[:, :, None] * bm.float()[:, None, :])[:, :, None, :] * x.float()[..., None]
     h_new = h * da[:, :, None, None] + dbx
     y = torch.einsum("bn,bhpn->bhp", cm.float(), h_new)
     return y, h_new
@@ -220,6 +249,18 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, width: int,
+                tp: ModelAxis) -> torch.Tensor:
+    """``rms_norm(y * silu(z), scale)`` over all ``width`` channels; where
+    ``tp`` splits the heads, ``y`` holds a rank's channels and their sum of
+    squares is summed over the axis."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    if not tp.splits("ssm_heads"):
+        return rms_norm(g, scale)
+    return rms_norm(g, scale, mean=lambda sq: tp.all_sum(
+        sq.sum(dim=-1, keepdim=True), "ssm_heads") / width)
+
+
 def mamba_layer(
     lp: Dict[str, torch.Tensor],
     h: torch.Tensor,  # (B, S, D)
@@ -231,36 +272,41 @@ def mamba_layer(
     conv_state: Optional[torch.Tensor] = None,  # (B, D_CONV-1, conv_dim)
     decode: bool = False,
     ssd_impl: str = "chunked",
+    tp: ModelAxis = WHOLE,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Returns (h_out, new_ssm_state, new_conv_state).
 
     Prefill (``decode=False``) starts from ``ssm_state`` (zeros if ``None``)
     and scans the prompt through ``ssd_impl``; the new conv state is the last
-    ``D_CONV - 1`` pre-conv rows in bfloat16, or ``None`` for a prompt shorter
-    than that (the caller keeps the old one, as the reference does).  Decode
-    takes one token against both states.
+    ``D_CONV - 1`` pre-conv rows in the layer's dtype, which the caller's
+    state buffer rounds as it stores them (bfloat16, as the reference keeps
+    it: :func:`init_states`), or ``None`` for a prompt shorter than that
+    (the caller keeps the old one, as the reference does).  Decode takes one
+    token against both states.  Under ``tp`` the layer computes the heads
+    of ``tp.range("ssm_heads")`` (``lp`` holds their columns,
+    :func:`split_products`; the states theirs) and sums its part of the
+    output over the ``model`` axis.
     """
     if ssd_impl not in SSD_IMPLS:
         raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
     B, S, D = h.shape
-    H, P, N = ssm_heads, ssm_head_dim, d_state
+    h0, h1 = tp.range("ssm_heads", ssm_heads)
+    H, P, N = h1 - h0, ssm_head_dim, d_state
     d_inner, conv_dim = mamba_dims(D, H, P, N)
 
     res = h
     x = rms_norm(h, lp["ln"])
-    proj = x @ lp["in_proj"]  # (B, S, 2*d_inner + 2N + H)
+    proj = tp.enter(x, "ssm_heads") @ lp["in_proj"]  # (B, S, 2*d_inner + 2N + H)
     z, xbc, dt_raw = torch.split(proj, [d_inner, conv_dim, H], dim=-1)
 
     if decode:
         assert conv_state is not None
         window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-        new_conv_state = window[:, 1:].to(torch.bfloat16)
+        new_conv_state = window[:, 1:]
         xbc_c = (torch.einsum("bkc,kc->bc", window, lp["conv_w"]) + lp["conv_b"])[:, None, :]
     else:
         xbc_c = _causal_conv(xbc, lp["conv_w"], lp["conv_b"])
-        new_conv_state = (
-            xbc[:, -(D_CONV - 1):, :].to(torch.bfloat16) if S >= D_CONV - 1 else None
-        )
+        new_conv_state = xbc[:, -(D_CONV - 1):, :] if S >= D_CONV - 1 else None
     xbc_c = F.silu(xbc_c)
 
     # column slices of xbc_c, no copy: the kernel reads them through strides
@@ -288,8 +334,8 @@ def mamba_layer(
 
     y = y + xs.float() * lp["d_skip"].float()[None, None, :, None]
     y = y.reshape(B, -1, d_inner).to(h.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(y.dtype), lp["norm"])
-    out = res + (y @ lp["out_proj"]).to(h.dtype)
+    y = _gated_norm(y, z, lp["norm"], ssm_heads * P, tp)
+    out = res + tp.leave(y @ lp["out_proj"], "ssm_heads").to(h.dtype)
     return out, new_state, new_conv_state
 
 
@@ -299,16 +345,40 @@ def mamba_layer(
 
 
 def init_states(
-    cfg, batch: int, device: torch.device
+    cfg, batch: int, device: torch.device, tp: ModelAxis = WHOLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed ``(L, B, H, P, N)`` float32 SSM states and ``(L, B, D_CONV-1,
-    conv_dim)`` bfloat16 conv states, whatever ``cfg.dtype`` (as the reference)."""
-    _, conv_dim = mamba_dims(cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    conv_dim)`` bfloat16 conv states, whatever ``cfg.dtype`` (as the
+    reference); under ``tp`` a rank's: its heads, its conv channels (its
+    heads' ``x`` and all of ``B`` / ``C``, :func:`rank_conv`)."""
+    h0, h1 = tp.range("ssm_heads", cfg.ssm_heads)
+    _, conv_dim = mamba_dims(cfg.d_model, h1 - h0, cfg.ssm_head_dim, cfg.ssm_state)
     L = cfg.n_layers
-    ssm = torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+    ssm = torch.zeros((L, batch, h1 - h0, cfg.ssm_head_dim, cfg.ssm_state),
                       dtype=torch.float32, device=device)
     conv = torch.zeros((L, batch, D_CONV - 1, conv_dim), dtype=torch.bfloat16, device=device)
     return ssm, conv
+
+
+def rank_conv(cfg, conv: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """A conv state whole along its channels (the last dim, ``x | B | C``)
+    as a rank computes with it (:func:`init_states`): its heads' ``x`` and
+    all of ``B`` / ``C``; ``conv`` itself where ``tp`` splits no heads."""
+    if not tp.splits("ssm_heads"):
+        return conv
+    h0, h1 = tp.ranges["ssm_heads"]
+    P, d_inner = cfg.ssm_head_dim, cfg.ssm_heads * cfg.ssm_head_dim
+    return torch.cat([conv[..., h0 * P:h1 * P], conv[..., d_inner:]], dim=-1)
+
+
+def whole_conv(cfg, conv: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+    """The inverse of :func:`rank_conv`: the ranks' ``x`` channels put
+    together in rank order (gathered over the axis), then ``B`` / ``C``."""
+    if not tp.splits("ssm_heads"):
+        return conv
+    bc = 2 * N_GROUPS * cfg.ssm_state
+    x, rest = conv.split([conv.shape[-1] - bc, bc], dim=-1)
+    return torch.cat([tp.gather(x, "ssm_heads"), rest], dim=-1)
 
 
 def run_stack(
@@ -320,18 +390,20 @@ def run_stack(
     conv_states: Optional[torch.Tensor],
     decode: bool,
     ssd_impl: str,
+    tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """The mamba layers ``layer_ids`` of the stack in order; writes each
     layer's new states into ``ssm_states[i]`` / ``conv_states[i]`` **in place**
     (a prompt too short for a conv state leaves that layer's as it was).
-    ``ssm_states`` ``None`` (training) keeps no state."""
+    ``ssm_states`` ``None`` (training) keeps no state.  ``tp``: the plan
+    the layers compute under (the states a rank's, :func:`init_states`)."""
     for i in layer_ids:
         lp = layer_params(layers, i)
         h, new_ssm, new_conv = mamba_layer(
             lp, h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk=cfg.ssm_chunk,
             ssm_state=ssm_states[i] if decode else None,
             conv_state=conv_states[i] if decode else None,
-            decode=decode, ssd_impl=ssd_impl,
+            decode=decode, ssd_impl=ssd_impl, tp=tp,
         )
         if ssm_states is None:
             continue

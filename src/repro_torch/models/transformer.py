@@ -535,7 +535,7 @@ def forward(
     """
     check_remat(remat)
     B, S = tokens.shape
-    h = _embed(params["embed"], tokens, tp).to(cfg.dtype)
+    h = embed(params["embed"], tokens, tp).to(cfg.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
         P = patch_embeds.shape[1]
         proj = (patch_embeds.to(cfg.dtype) @ params["patch_proj"]).to(cfg.dtype)
@@ -562,7 +562,7 @@ def forward(
     return h, kv_caches
 
 
-def _embed(w: torch.Tensor, tokens: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+def embed(w: torch.Tensor, tokens: torch.Tensor, tp: ModelAxis = WHOLE) -> torch.Tensor:
     """The embedding lookup; vocab-parallel where ``tp`` splits the
     vocabulary: a rank looks up the ids in its rows, zeroes the others' and
     the ranks' rows are summed (exact: one of them is not zero)."""

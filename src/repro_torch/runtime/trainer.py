@@ -34,7 +34,10 @@ deterministic: the embedding is looked up by ``F.embedding`` and the loss
 is ``F.cross_entropy``, whose backwards on CUDA write each gradient once
 (an indexing's or a gather's would add with atomics); the trainer does not
 switch on ``torch.use_deterministic_algorithms``.  The MoE capacity path
-(``index_add_``, an indexing backward) is not deterministic on CUDA.
+replays bit for bit too (shown on an H100 at qwen2_moe_a2_7b's full width,
+2 layers, 4,096 tokens a batch): its ``index_add_`` writes each kept slot
+once, so the order of the atomic adds matters only in the drop bucket,
+which is cut off.
 """
 
 from __future__ import annotations

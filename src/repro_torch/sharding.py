@@ -37,20 +37,30 @@ family declares which products may split, the leaves each reads and the
 dim that holds its units (:class:`Product`,
 :func:`repro_torch.models.split_products`); :func:`model_axis` reads this
 rank's share off the leaves' shardings into a plan (:class:`ModelAxis`),
-which the model computes under.  For the transformer families:
+which the model computes under.  A leaf is read in one of three ways
+(:data:`Take`): its storage block as it lies, where that block is the
+rank's share; gathered over ``model`` and cut to the units the rank reads
+(a K / V head cut across storage shards, a per-head vector the rules
+replicate); or gathered and cut into several pieces, where the leaf's dim
+holds segments one after another, some split by the product's units and
+some read whole (:class:`Segments`: a mamba layer's input projection,
+whose columns are ``z | x | B | C | dt``).  The families declare:
 
-* attention by whole heads, where ``n_heads`` divides the axis: ``wq`` /
-  ``bq`` column-parallel and ``wo`` row-parallel on the storage shard as it
-  lies; the K / V heads a rank's query heads read are its own shard of
-  ``wk`` / ``wv`` where ``n_kv_heads`` divides the axis, else gathered over
-  it and cut to those heads (one K / V head a rank).  Where ``n_heads`` does
-  not divide the axis, attention is computed whole on every rank (GSPMD
-  splits those heads below a head; the port does not);
-* the dense MLP and the MoE shared expert over ``ff`` (``w_gate`` / ``w_up``
-  column-, ``w_down`` row-parallel), the routed experts over ``expert``
-  (each rank runs its experts' slots) or, where the expert count does not
-  divide the axis, over ``ff_expert``; the router and the shared expert's
-  gate run whole, every rank routing the same rows;
+* attention by whole heads, where ``n_heads`` divides the axis (the
+  transformers, zamba2's shared block, whisper's self- and
+  cross-attention): the query projection column-parallel and the output
+  projection row-parallel on the storage shard as it lies; the K / V heads
+  a rank's query heads read are its own shard where ``n_kv_heads`` divides
+  the axis, else gathered over it and cut to those heads.  Where
+  ``n_heads`` does not divide the axis, attention is computed whole on
+  every rank (GSPMD splits those heads below a head; the port does not);
+* the MLPs over ``ff``, the MoE's routed experts over ``expert`` or
+  ``ff_expert``; the router and the shared expert's gate run whole;
+* a mamba layer by SSM heads: its heads' columns of the input projection
+  and the conv with the B / C columns whole (every rank computes B and C),
+  its heads of the per-head vectors, the norm scale and the output
+  projection (row-parallel) as they lie; the gated norm's sum of squares is
+  summed over the axis (:meth:`ModelAxis.all_sum`);
 * the vocabulary: a vocab-parallel embedding lookup, the head
   column-parallel and the loss a vocab-parallel cross-entropy; greedy
   decoding takes the argmax across the shards.
@@ -59,11 +69,11 @@ A region split this way is entered by an identity whose backward sums the
 gradient over the axis and left by a sum whose backward is the identity,
 so the activations between regions (and the gradients of the leaves not
 split) are the same on every rank of the axis, and a split leaf's gradient
-is this rank's block.  A leaf the rules shard over ``model`` whose product
-stays whole (the attention of heads that do not divide the axis) is
-gathered over ``model`` and its gradient cut back to this rank's block.
-The ssm, hybrid and audio families gather every leaf and compute whole on
-the ``model`` axis.  No op of the model runs through DTensor dispatch, so
+is this rank's block.  A leaf read gathered and cut has its gradient
+summed over ``model`` (each rank's holds its own units' part) and cut back
+to this rank's block.  A leaf the rules shard over ``model`` whose product
+stays whole is gathered over ``model`` and its gradient cut back to this
+rank's block.  No op of the model runs through DTensor dispatch, so
 none needs a DTensor sharding rule (the embedding's lookup, the MoE
 capacity path's ``index_add_`` and the rest run on local tensors).
 Collectives are the functional ones (``torch.ops._c10d_functional``); a
@@ -469,25 +479,72 @@ class _LeaveSplit(torch.autograd.Function):
         return grad, None
 
 
+class _SumSplit(torch.autograd.Function):
+    """A sum over the ``model`` axis that every rank reads on (a norm's sum
+    of squares over channels the ranks hold parts of): the ranks' parts
+    summed; in backward too, since each rank's part of the gradient of the
+    sum comes from its own channels."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
 Range = Tuple[int, int]
 #: how a rank reads a leaf whose product is split: ``("split", dim)`` keeps
 #: the leaf's ``model``-axis block of ``dim`` as it lies; ``("slice", dim,
 #: start, stop)`` gathers the leaf over the axis and takes ``start:stop`` of
-#: ``dim`` (the K / V heads of a storage shard that cuts a head)
+#: ``dim`` (the K / V heads of a storage shard that cuts a head, a per-head
+#: vector the rules replicate); ``("pieces", dim, ((start, stop), ...))``
+#: gathers it and puts those ranges of ``dim`` together in order
+#: (:class:`Segments`)
 Take = Tuple[Any, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A leaf dim that holds segments one after another, as a product reads
+    it: ``parts`` ``(width, split)`` in order, ``width`` columns a unit of
+    the product where ``split`` (that segment is ``units * width`` wide and
+    a rank reads its units' columns), else the whole segment's width, which
+    every rank reads whole.  A mamba layer's input projection, columns ``z |
+    x | B | C | dt``: ``P``, ``P`` a head, ``2N`` whole, ``1`` a head."""
+
+    dim: int
+    parts: Tuple[Tuple[int, bool], ...]
+
+    def take(self, units: Range, n: int) -> Take:
+        """How a rank whose share is ``units`` of ``n`` reads the leaf."""
+        pieces, at = [], 0
+        for width, split in self.parts:
+            if split:
+                pieces.append((at + units[0] * width, at + units[1] * width))
+                at += n * width
+            else:
+                pieces.append((at, at + width))
+                at += width
+        if len(pieces) == 1:
+            return ("slice", self.dim, *pieces[0])
+        return ("pieces", self.dim, tuple(pieces))
 
 
 @dataclasses.dataclass(frozen=True)
 class Product:
     """A product the ``model`` axis may split, as a model family declares it
     (:func:`repro_torch.models.split_products`): the leaves it reads, each
-    with the dim that holds its units, and the count of its units (heads,
-    ``ff`` rows, experts, vocabulary rows), each ``width`` wide along those
-    dims.  ``read_by`` ``(product, group)``: that product's units read this
-    one's, ``group`` of them each (query heads reading their K / V head);
-    this one is split where that one is, on the units a rank's share reads."""
+    with the dim that holds its units (or its :class:`Segments`), and the
+    count of its units (heads, ``ff`` rows, experts, vocabulary rows), each
+    ``width`` wide along those dims.  ``read_by`` ``(product, group)``: that
+    product's units read this one's, ``group`` of them each (query heads
+    reading their K / V head); this one is split where that one is, on the
+    units a rank's share reads."""
 
-    leaves: Mapping[str, int]
+    leaves: Mapping[str, Any]
     units: int
     width: int = 1
     read_by: Optional[Tuple[str, int]] = None
@@ -528,6 +585,21 @@ class ModelAxis:
         xs = self.enter(x, *(p for r in regions for p in r))
         return [xs if self.splits(*r) else x for r in regions]
 
+    def all_sum(self, x: torch.Tensor, *products: str) -> torch.Tensor:
+        """``x`` summed over the axis where ``products`` are split, in
+        forward and in backward (:class:`_SumSplit`); ``x`` itself where
+        they are whole."""
+        return _SumSplit.apply(x, self.group) if self.splits(*products) else x
+
+    def cut(self, x: torch.Tensor, leaf: str, dim: int) -> torch.Tensor:
+        """``x`` cut along ``dim`` as the plan reads leaf ``leaf``'s
+        pieces (a decode state laid out like that leaf's dim); ``x`` itself
+        where the plan reads the leaf whole or as it lies."""
+        take = self.takes.get(leaf)
+        if take is None or take[0] == "split":
+            return x
+        return _cut(x, dim, take)
+
     def leave_sum(self, *parts: Tuple[Tuple[str, ...], torch.Tensor]) -> torch.Tensor:
         """The sum of ``(region, part)`` pairs: the split regions' parts
         summed over the axis in one, then the whole regions' added."""
@@ -543,11 +615,19 @@ class ModelAxis:
         return c10d.wait_tensor(c10d.all_reduce(x.detach().contiguous(), "max",
                                                 self.group.group_name))
 
-    def gather(self, x: torch.Tensor, product: str) -> torch.Tensor:
-        """The whole of ``x``, whose last dim holds this rank's units of
+    def gather(self, x: torch.Tensor, product: str, dim: int = -1,
+               units: Optional[int] = None) -> torch.Tensor:
+        """The whole of ``x``, whose ``dim`` holds this rank's units of
         ``product``: the ranks' blocks put together in rank order (no
-        gradient); ``x`` itself where ``product`` is whole."""
-        return _all_gather(x.detach(), x.dim() - 1, self.group) if self.splits(product) else x
+        gradient), each of the ``units`` once where several ranks read one
+        (a cut K / V head); ``x`` itself where ``product`` is whole."""
+        if not self.splits(product):
+            return x
+        dim %= x.dim()
+        full = _all_gather(x.detach(), dim, self.group)
+        if units is not None and full.shape[dim] > units:
+            full = full.unflatten(dim, (units, -1)).select(dim + 1, 0)
+        return full
 
     def argmax(self, local: torch.Tensor, product: str) -> torch.Tensor:
         """The index of the largest element along the last dim, the lowest
@@ -584,7 +664,8 @@ def model_axis(products: Mapping[str, Product], shardings: Mapping[str, Sharding
     """This rank's plan (:class:`ModelAxis`), read off the leaves'
     ``shardings`` (flat names).  A product is split where its units divide
     the axis and the rules shard every leaf it reads over ``model`` along
-    its units' dim, so that each rank's storage block is its share.  A
+    its units' dim, so that each rank's storage block is its share (a leaf
+    of :class:`Segments` is read gathered and cut, however it lies).  A
     product read by another (``Product.read_by``) is split where that one
     is: its leaves as they lie where their block is the units the rank's
     share reads, else gathered over the axis and cut to them.  :data:`WHOLE`
@@ -600,11 +681,13 @@ def model_axis(products: Mapping[str, Product], shardings: Mapping[str, Sharding
         leaves = {n: d for n, d in p.leaves.items() if n in shardings}
         own = (r * p.units // M, (r + 1) * p.units // M)
         lies = (bool(leaves) and p.units % M == 0
-                and all(shardings[n].tensor_dim("model") == d for n, d in leaves.items()))
+                and all(shardings[n].tensor_dim("model") == d for n, d in leaves.items()
+                        if not isinstance(d, Segments)))
         if p.read_by is None:
             if lies:
                 ranges[name] = own
-                takes.update({n: ("split", d) for n, d in leaves.items()})
+                takes.update({n: d.take(own, p.units) if isinstance(d, Segments)
+                              else ("split", d) for n, d in leaves.items()})
             continue
         reader, group = p.read_by
         units = read_range(ranges[reader], group) if reader in ranges else None
@@ -626,8 +709,14 @@ def read(local: torch.Tensor, sharding: Sharding, take: Optional[Take] = None) -
         return unshard(local, sharding)
     if take[0] == "split":
         return unshard(local, sharding, keep=(take[1],))
-    _, dim, start, stop = take
-    return unshard(local, sharding, partial=True).narrow(dim, start, stop - start)
+    return _cut(unshard(local, sharding, partial=True), take[1], take)
+
+
+def _cut(full: torch.Tensor, dim: int, take: Take) -> torch.Tensor:
+    """The ranges of ``dim`` a ``"slice"`` or ``"pieces"`` take names."""
+    pieces = (take[2:],) if take[0] == "slice" else take[2]
+    parts = [full.narrow(dim, a, b - a) for a, b in pieces]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 class GatheredStack:

@@ -156,7 +156,8 @@ def _layer(arch="mamba2_370m", seed=0):
 @pytest.mark.parametrize("S", [1, 2, 3, 20, 70])
 def test_mamba_layer_prefill_matches_reference(ssd_impl, S):
     """Prefill of one layer: hidden states, the last SSM state and the conv
-    state (``None`` for a prompt shorter than ``D_CONV - 1``, as the reference)."""
+    state (``None`` for a prompt shorter than ``D_CONV - 1``, as the
+    reference), as a bfloat16 state buffer stores it."""
     tcfg, lp, dims = _layer()
     h = _layer_inputs(2, S, tcfg.d_model)
     got = mamba2.mamba_layer({k: torch.from_numpy(v) for k, v in lp.items()},
@@ -168,13 +169,14 @@ def test_mamba_layer_prefill_matches_reference(ssd_impl, S):
     if S < mamba2.D_CONV - 1:
         assert got[2] is None and want[2] is None
     else:
-        assert got[2].dtype == torch.bfloat16
-        _close(got[2], want[2], 0.0)
+        assert got[2].dtype == torch.float32 and want[2].dtype == jnp.bfloat16
+        _close(got[2].bfloat16(), want[2], 0.0)
 
 
 @pytest.mark.parametrize("ssd_impl", ["chunked", "hopper"])
 def test_mamba_layer_decode_matches_reference(ssd_impl):
-    """One token against a carried state; ``ssd_impl`` does not touch decode."""
+    """One token against a carried state; ``ssd_impl`` does not touch decode.
+    The conv state as a bfloat16 state buffer stores it."""
     tcfg, lp, dims = _layer()
     rng = np.random.default_rng(9)
     _, conv_dim = mamba2.mamba_dims(tcfg.d_model, *dims)
@@ -190,9 +192,10 @@ def test_mamba_layer_decode_matches_reference(ssd_impl):
     want = jmamba2.mamba_layer({k: jnp.asarray(v) for k, v in lp.items()}, jnp.asarray(h), *dims,
                                ssm_state=jnp.asarray(ssm_state), conv_state=conv_state,
                                decode=True)
-    for g, w in zip(got, want):
-        _close(g, w, 2e-5)
-    assert got[2].dtype == torch.bfloat16
+    _close(got[0], want[0], 2e-5)
+    _close(got[1], want[1], 2e-5)
+    assert got[2].dtype == torch.float32 and want[2].dtype == jnp.bfloat16
+    _close(got[2].bfloat16(), want[2], 2e-5)
 
 
 def test_mamba_layer_bfloat16_matches_reference():

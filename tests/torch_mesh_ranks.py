@@ -23,16 +23,18 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import repro_torch.configs as tconfigs
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch.mesh import start_process_group
-from repro_torch.models import Model, param_axes, param_shapes, split_products, transformer
+from repro_torch.models import Model, mamba2, param_axes, param_shapes, split_products, transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import TrainConfig, Trainer
 from repro_torch.runtime.trainer import loss_and_grads
 from repro_torch.sharding import (
-    Sharding, default_rules, distribute, gathered_tree, logical_to_sharding, model_axis, unshard,
+    ModelAxis, Sharding, default_rules, distribute, gathered_tree, logical_to_sharding, model_axis,
+    unshard,
 )
 
 torch.set_num_threads(1)
@@ -159,6 +161,11 @@ TP_CONFIGS = {
                                                                                 n_experts=6))),
     "llama4": ("llama4_scout_17b_a16e", lambda c: c),             # 4 experts, chunked attention
     "vocab250": ("stablelm_3b", lambda c: dataclasses.replace(c, vocab=250)),
+    "mamba2": ("mamba2_370m", lambda c: c),                       # 4 SSM heads
+    "zamba2": ("zamba2_2_7b", lambda c: c),                       # 4 SSM heads, 4 / 4 shared
+    "whisper": ("whisper_large_v3", lambda c: c),                 # 4 / 4 heads
+    "whisper_h6": ("whisper_large_v3",                            # 6 heads: whole on 4 ranks
+                   lambda c: dataclasses.replace(c, n_heads=6, n_kv_heads=6, head_dim=16)),
 }
 #: the meshes ``(data, model)`` of the 2- and 4-rank runs
 TP_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
@@ -166,6 +173,10 @@ TP_DATA = dict(seq_len=40, global_batch=4, seed=5)
 #: serving: 2 prompts of 136 tokens (272 > 256: the MoE capacity path), 4
 #: greedy steps; the vlm's prompts open with 8 patch embeddings
 TP_SERVE = dict(batch=2, prompt=136, steps=4, patches=8, seed=6)
+#: the audio family's frames (training and serving) and the token its
+#: decoding starts from
+TP_FRAMES = 12
+TP_START = 1
 TP_IMPLS = ("xla", "chunked")
 
 
@@ -192,10 +203,26 @@ def vision_inputs(cfg, B, S, P, seed):
     return {"patch_embeds": patches.astype(np.float32), "mrope_positions": pos}
 
 
+def frame_inputs(cfg, B, seed):
+    """The audio family's ``frame_embeds`` (:data:`TP_FRAMES` of them a
+    row); nothing for the other families."""
+    if cfg.family != "audio":
+        return {}
+    frames = np.random.default_rng(seed).standard_normal((B, TP_FRAMES, cfg.d_model)) * 0.5
+    return {"frame_embeds": frames.astype(np.float32)}
+
+
+def model_inputs(cfg, B, S, P, seed):
+    """The inputs beside the tokens a family takes: the vlm's vision inputs,
+    the audio family's frames."""
+    return {**vision_inputs(cfg, B, S, P, seed), **frame_inputs(cfg, B, seed)}
+
+
 def tp_batch(cfg, i):
-    """Step ``i``'s global batch, with the vlm's vision inputs."""
+    """Step ``i``'s global batch, with the vlm's vision inputs and the audio
+    family's frames."""
     return {**SyntheticLM(tp_data(cfg)).batch(i),
-            **vision_inputs(cfg, TP_DATA["global_batch"], TP_DATA["seq_len"], 8, i)}
+            **model_inputs(cfg, TP_DATA["global_batch"], TP_DATA["seq_len"], 8, i)}
 
 
 def tp_train(cfg, mesh, ckpt_dir):
@@ -233,26 +260,34 @@ def serving_params(cfg, tie=False):
 
 
 @contextlib.contextmanager
-def kv_caches_in(dtype):
-    """``Model.prefill``'s KV caches in ``dtype`` (bfloat16 by default, as
-    the reference keeps them) while the context lasts."""
-    make = transformer.init_kv_cache
-    transformer.init_kv_cache = functools.partial(make, dtype=dtype)
+def states_in(dtype):
+    """``Model.prefill``'s transformer KV caches and mamba conv states in
+    ``dtype`` (bfloat16 by default, as the reference keeps them) while the
+    context lasts."""
+    make_kv, make_states = transformer.init_kv_cache, mamba2.init_states
+
+    def init_states(*args, **kwargs):
+        ssm, conv = make_states(*args, **kwargs)
+        return ssm, conv.to(dtype)
+
+    transformer.init_kv_cache = functools.partial(make_kv, dtype=dtype)
+    mamba2.init_states = init_states
     try:
         yield
     finally:
-        transformer.init_kv_cache = make
+        transformer.init_kv_cache, mamba2.init_states = make_kv, make_states
 
 
 def tp_serve(cfg, impl, mesh=None, tie=False, cache=torch.float32):
     """Prefill then greedy decode steps on ``mesh`` (the rules' layout, no
-    fsdp) or without one, the KV caches in ``cache``: the whole logits of
-    each step and the greedy tokens (``Model.greedy``)."""
+    fsdp) or without one, the KV caches and conv states in ``cache``: the
+    whole logits of each step and the greedy tokens (``Model.greedy``).
+    The audio family decodes from its encoder output and a start token."""
     params = serving_params(cfg, tie)
     s = TP_SERVE
     rng = np.random.default_rng(s["seed"])
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (s["batch"], s["prompt"])))}
-    batch.update({k: torch.from_numpy(v) for k, v in vision_inputs(
+    batch.update({k: torch.from_numpy(v) for k, v in model_inputs(
         cfg, s["batch"], s["prompt"], s["patches"], s["seed"]).items()})
     if mesh is None:
         model = Model(cfg, attn_impl=impl, device="cpu")
@@ -264,8 +299,11 @@ def tp_serve(cfg, impl, mesh=None, tie=False, cache=torch.float32):
         model = Model(cfg, attn_impl=impl, device="cpu", storage="meta")
         ctx = bound(model, blocks, shardings)
     logits, tokens = [], []
-    with ctx, torch.no_grad(), kv_caches_in(cache):
-        h, state = model.prefill(batch, max_len=s["prompt"] + s["steps"])
+    with ctx, torch.no_grad(), states_in(cache):
+        h, state = model.prefill(batch, max_len=s["prompt"] + s["steps"]
+                                 + (cfg.family == "audio"))
+        if cfg.family == "audio":
+            h, state = model.decode_step(torch.full((s["batch"], 1), TP_START), state)
         for step in range(s["steps"] + 1):
             logits.append(model.logits(h[:, -1]))
             tokens.append(model.greedy(h[:, -1]))
@@ -289,17 +327,24 @@ def tp_shardings(cfg, mesh, fsdp):
 
 class LeafFlops(TorchDispatchMode):
     """Matrix-product flops by the parameter leaf one of whose operands is
-    (a view of) its storage, and the functional collectives by op and
-    process group, with their operands' shapes."""
+    (a view of) its storage, or a copy made of it alone (gathered over a
+    mesh axis, cut into pieces and put together), and the functional
+    collectives by op and process group, with their operands' shapes."""
 
     PRODUCTS = {torch.ops.aten.mm: (0, 1), torch.ops.aten.bmm: (0, 1),
                 torch.ops.aten.addmm: (1, 2), torch.ops.aten.baddbmm: (1, 2)}
+    #: the ops whose output is a leaf's where every input is that leaf's
+    COPIES = ("clone", "cat", "_to_copy", "all_gather_into_tensor", "wait_tensor")
 
     def __init__(self, leaves):
         super().__init__()
         self.names = {t.untyped_storage().data_ptr(): k for k, t in leaves.items()}
+        self.copies = []     # kept alive, so that no other tensor takes their address
         self.flops = collections.Counter()
         self.collectives = []
+
+    def _name(self, t):
+        return self.names.get(t.untyped_storage().data_ptr())
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -308,10 +353,16 @@ class LeafFlops(TorchDispatchMode):
             a, b = (args[i] for i in operands)
             n = 2 * out.numel() * a.shape[-1]
             self.flops["total"] += n
-            for name in {self.names.get(t.untyped_storage().data_ptr()) for t in (a, b)} - {None}:
+            for name in {self._name(t) for t in (a, b)} - {None}:
                 self.flops[name] += n
-        elif func.namespace == "_c10d_functional" and func._opname != "wait_tensor":
+            return out
+        if func.namespace == "_c10d_functional" and func._opname != "wait_tensor":
             self.collectives.append((func._opname, args[-1], list(args[0].shape)))
+        if func._opname in self.COPIES and isinstance(out, torch.Tensor):
+            names = {self._name(t) for t in tree_leaves(args) if isinstance(t, torch.Tensor)}
+            if len(names) == 1 and None not in names:
+                self.names[out.untyped_storage().data_ptr()] = names.pop()
+                self.copies.append(out)
         return out
 
 
@@ -335,6 +386,21 @@ def tp_flops(cfg, mesh=None):
     with torch.no_grad(), ctx, FlopCounterMode(display=False) as counter, LeafFlops(leaves) as mode:
         model.train_loss(batch)
     return {**mode.flops, "counter": counter.get_total_flops()}, mode.collectives
+
+
+def all_sum_check(mesh):
+    """Each rank's part ``[1 + r, 2 + r]`` summed over ``model`` by
+    ``ModelAxis.all_sum``, then rank ``r``'s sum weighed by ``r + 1``:
+    every rank's parts, sums and its part's gradient."""
+    r, M = mesh.get_coordinate()[1], mesh.shape[1]
+    plan = ModelAxis(mesh.get_group("model"), {"p": (r, r + 1)})
+    part = torch.tensor([1.0 + r, 2.0 + r], requires_grad=True)
+    total = plan.all_sum(part, "p")
+    (total * (r + 1)).sum().backward()
+    every = [None] * M
+    dist.all_gather_object(every, [part.tolist(), total.tolist(), part.grad.tolist()],
+                           group=mesh.get_group("model"))
+    return {k: np.array([e[i] for e in every]) for i, k in enumerate(("parts", "sum", "grad"))}
 
 
 def _tp_ranks(rank, init_file, out_dir, world):
@@ -365,13 +431,15 @@ def _tp_ranks(rank, init_file, out_dir, world):
             if data == 1:
                 logits, tokens = tp_serve(tp_config("stablelm"), "chunked", mesh, tie=True)
                 _save(out_dir, f"serve_{tag}_tie", rank, logits=logits, tokens=tokens)
+                _save(out_dir, f"all_sum_{tag}", rank, **all_sum_check(mesh))
     finally:
         dist.destroy_process_group()
 
 
 def tp_two_ranks(rank: int, init_file: str, out_dir: str) -> None:
     """``(data=1, model=2)``: every tensor-parallel config trained 3 steps,
-    served and counted, and the tied head served."""
+    served and counted, the tied head served and ``ModelAxis.all_sum``
+    checked."""
     _tp_ranks(rank, init_file, out_dir, 2)
 
 
