@@ -6,8 +6,9 @@
 
 It imports ``repro_torch`` only, builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (one process a source, all
-started together), and drives the port's ten serving paths and its training
-path through the entry points a user calls.  Each phase prints one JSON line:
+started together), and drives the port's ten serving paths, its training
+path and its five examples through the entry points a user calls.  Each
+phase prints one JSON line:
 
 1. ``device``            card name and power limit (``nvidia-smi``), torch / CUDA / nvcc versions
 2. ``build``             build seconds, the ``.so``, per-kernel registers / spills / shared
@@ -96,7 +97,18 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          {1, 4}, each dry-run and costed against the card's memory; only the
                          variants predicted to fit run (1 + 3 steps, measured peak memory);
                          fails if one of them runs out of memory or the chosen one does not run
-18. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
+18. ``examples``         the port's five examples, each a process of its own on the card as a
+                         user runs them, loading neither JAX nor the reference package:
+                         ``torch_quickstart`` (60 steps, one-rank NCCL mesh),
+                         ``torch_train_100m`` at full width (79.97 M parameters, 8 x 256
+                         tokens a step; tokens/s, losses, stragglers, checkpoint bytes),
+                         ``torch_translate_kernel`` in three modes (the trace's span count),
+                         ``torch_serve_daemon --chaos`` (warm restart from disk, no corrupt
+                         response) and ``torch_serve_batched --full`` on gemma3_1b and
+                         mamba2_370m at their published widths (their launches of each
+                         kernel, counted in that process); one at a time, one line an
+                         example run
+19. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
                          the serving paths, error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
@@ -105,7 +117,7 @@ path through the entry points a user calls.  Each phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-19. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
+20. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after, prints its initialisation and serving peaks of device memory
@@ -156,7 +168,7 @@ from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
 PHASES = ["device", "build", "tune", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train",
-          "train_mesh", "dryrun", "select", "kernels", "serve_throughput"]
+          "train_mesh", "dryrun", "select", "examples", "kernels", "serve_throughput"]
 # not run by default: --phases serve,...,serve_whisper,profile; --phases device,dryrun_all
 EXTRA_PHASES = ["profile", "dryrun_all"]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -2605,6 +2617,160 @@ def phase_dryrun_all(ctx):
                  for r in records if r["status"] == "error"],
          trace_s={f"{r['arch']}/{r['shape']}/{r['mesh']}": r["lower_s"] for r in records
                   if r["status"] == "ok"})
+
+
+#: an example run as ``__main__`` (``sys.argv[1]`` is its path), then the
+#: check that the process loaded neither JAX nor the reference package; it
+#: prints each kernel's launches in that process as the last line of stderr
+#: and ``NO-JAX`` as the last of stdout.  ``tests/test_torch_examples.py``
+#: runs the port's examples in this wrapper too.
+EXAMPLE_RUN = (
+    "import json, runpy, sys\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+    "             or m == 'repro' or m.startswith('repro.'))\n"
+    "assert not bad, bad\n"
+    "mods = {'flash_attention': 'repro_torch.kernels.flash_attention',\n"
+    "        'mamba2_ssd': 'repro_torch.kernels.mamba2_ssd'}\n"
+    "print(json.dumps({k: getattr(sys.modules[m], k).launches if m in sys.modules else 0\n"
+    "                  for k, m in mods.items()}), file=sys.stderr)\n"
+    "print('NO-JAX')\n"
+)
+#: torch_train_100m's steps on the card: the most that fit in the 60 s this
+#: phase gives it (on an H100, 300 steps of 8 x 256 tokens took 134.9 s, about
+#: 16 s of it start-up and 0.40 s a step; 100 steps end with one checkpoint)
+EXAMPLE_TRAIN_STEPS = 100
+DAEMON_INVARIANT = re.compile(r"  invariant held: \d+ fault-free, \d+ flagged-degraded, 0 corrupt")
+
+
+def run_example(script, *args, timeout=600):
+    """``examples/<script>.py`` in :data:`EXAMPLE_RUN`, from the repo root on
+    the default device: its seconds, its own stdout lines (the wrapper's
+    line off), its stderr and the kernel launches it made."""
+    t0 = time.perf_counter()
+    # the caller's environment as a user has it (no OMP_NUM_THREADS cap): one at a time
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", EXAMPLE_RUN, f"examples/{script}.py", *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"examples: {script} {' '.join(args)} exited {out.returncode}: {out.stderr[-3000:]}")
+    *lines, last = out.stdout.splitlines()
+    require(last == "NO-JAX", f"examples: {script} loaded JAX or the reference")
+    return dict(seconds=round(seconds, 3), exit_code=out.returncode, lines=lines,
+                stderr=out.stderr, launches=json.loads(out.stderr.splitlines()[-1]))
+
+
+def emit_example(ctx, script, args, run, **numbers):
+    emit("examples", example=script, args=list(args), device=ctx["card"],
+         seconds=run["seconds"], exit_code=run["exit_code"], launches=run["launches"],
+         **numbers)
+
+
+def phase_examples(ctx):
+    """The port's five examples, each a process of its own, one at a time,
+    as a user runs them.  The host code first: ``torch_translate_kernel`` in
+    three modes (the trace's span count held to the one printed) and
+    ``torch_serve_daemon --chaos``.  Then the card's: ``torch_quickstart``
+    (60 steps on a one-rank NCCL mesh), ``torch_train_100m`` at full width
+    (79.97 M parameters, its default 8 x 256 tokens a step,
+    ``EXAMPLE_TRAIN_STEPS`` steps, a fresh ``--ckpt``) and
+    ``torch_serve_batched --full`` on gemma3_1b and mamba2_370m at their
+    published widths (their ``Server`` launches the attention and SSD
+    kernels; counted in that process, not on the ``kernels`` line).  Each must exit 0, load neither
+    JAX nor the reference package, and end in ``OK``; ``torch_serve_daemon``
+    ends, as the reference's does, in its invariant line, which it prints
+    only once every response was checked."""
+    import tempfile
+
+    if "card" not in ctx:
+        ctx["card"] = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"]).splitlines()[0].strip()
+    gc.collect()
+    torch.cuda.empty_cache()          # the examples' processes share the card with this one
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    ctx.setdefault("tmp_dirs", []).append(tmp)
+
+    def ends_ok(script, run):
+        require(run["lines"] and run["lines"][-1] == "OK",
+                f"examples: {script} did not end in OK: {run['lines'][-5:]}")
+
+    trace = os.path.join(tmp, "translate_trace.json")
+    host = [("torch_translate_kernel", "--kernel", "cfd"),
+            ("torch_translate_kernel", "--batch", "cfd,nn,cfd", "--tune", "--workers", "2"),
+            ("torch_translate_kernel", "--kernel", "nn", "--tune", "--profile", "--trace", trace),
+            ("torch_serve_daemon", "--chaos")]
+    for script, *args in host:
+        run = run_example(script, *args)
+        lines = run["lines"]
+        if script == "torch_serve_daemon":
+            require("  pipeline passes run: ZERO (all from disk); disk hits: 4" in lines,
+                    f"serve_daemon: the warm restart ran passes: {lines}")
+            require(DAEMON_INVARIANT.fullmatch(lines[-1]) is not None,
+                    f"serve_daemon: {lines[-3:]}")
+            emit_example(ctx, script, args, run,
+                         faults=next(ln for ln in lines if "faults fired" in ln).strip(),
+                         invariant=lines[-1].strip())
+            continue
+        ends_ok(script, run)
+        numbers = {"stdout_lines": len(lines)}
+        if "--trace" in args:
+            spans = re.search(r"trace: (\d+) spans -> (\S+)", run["stderr"])
+            require(spans is not None and spans.group(2) == trace and os.path.exists(trace),
+                    f"translate_kernel: no trace ({run['stderr'][-500:]})")
+            with open(trace) as f:
+                events = len(json.load(f)["traceEvents"])
+            require(events == int(spans.group(1)) > 0,
+                    f"translate_kernel: {events} trace events, {spans.group(1)} spans printed")
+            numbers["trace_spans"] = events
+        emit_example(ctx, script, args, run, **numbers)
+
+    run = run_example("torch_quickstart")
+    ends_ok("torch_quickstart", run)
+    require(run["lines"][0] == "steps: 60  restarts: 0", f"quickstart: {run['lines'][:2]}")
+    first, final = map(float, re.fullmatch(r"loss: (\S+) -> (\S+)", run["lines"][1]).groups())
+    emit_example(ctx, "torch_quickstart", [], run, steps=60, first_loss=first, final_loss=final)
+
+    ckpt = os.path.join(tmp, "ckpt_100m")
+    args = ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", ckpt]
+    run = run_example("torch_train_100m", *args)
+    ends_ok("torch_train_100m", run)
+    lines = run["lines"]
+    require(lines[0] == "model: granite_100m, 80M params", f"train_100m: {lines[0]}")
+    # straggler lines come while it trains, before its "done in" line
+    at = next((i for i, ln in enumerate(lines) if ln.startswith("done in")), None)
+    require(at is not None, f"train_100m: {lines[-5:]}")
+    done = re.fullmatch(r"done in (\d+)s \((\d+) tok/s on cuda, (.+)\)", lines[at])
+    require(done is not None, f"train_100m: {lines[at]}")
+    losses = re.fullmatch(r"  final loss (\S+) \(started (\S+)\)", lines[-2])
+    require(losses is not None, f"train_100m: {lines[-2]}")
+    final, first = map(float, losses.groups())
+    require(final < first, f"train_100m: the loss did not fall ({first} -> {final})")
+    steps = sorted(os.listdir(ckpt))
+    require(steps and steps[-1] == f"step_{EXAMPLE_TRAIN_STEPS:08d}",
+            f"train_100m: checkpoints {steps}")
+    emit_example(ctx, "torch_train_100m", args, run, steps=EXAMPLE_TRAIN_STEPS,
+                 tokens_per_s=int(done.group(2)), first_loss=first, final_loss=final,
+                 stragglers=[ln.strip() for ln in lines[1:at]],
+                 checkpoints=steps, checkpoint_bytes=dir_bytes(os.path.join(ckpt, steps[-1])),
+                 loss_table=lines[at + 1:-2])
+
+    for model, kernel in (("gemma3_1b", "flash_attention"), ("mamba2_370m", "mamba2_ssd")):
+        layers = get_config(model).n_layers
+        args = ["--full", "--model", model, "--store", os.path.join(tmp, f"store_{model}")]
+        run = run_example("torch_serve_batched", *args)
+        ends_ok("torch_serve_batched", run)
+        served = next((re.fullmatch(r"served 10 requests / 120 tokens on cuda in (\S+)s "
+                                    r"\((\S+) tok/s, 4 slots\)", ln) for ln in run["lines"]
+                       if ln.startswith("served")), None)
+        require(served is not None, f"serve_batched {model}: {run['lines']}")
+        n = run["launches"][kernel]
+        # each forward pass calls the kernel once a layer
+        require(n > 0 and n % layers == 0,
+                f"serve_batched {model}: {n} {kernel} launches for {layers} layers")
+        emit_example(ctx, "torch_serve_batched", args, run, tokens=120,
+                     serve_s=float(served.group(1)), tokens_per_s=float(served.group(2)))
 
 
 DENSE_WHY = ("bf16 through every layer: the kernel and attention_chunked round each layer's "

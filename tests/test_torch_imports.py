@@ -134,7 +134,9 @@ def test_importing_the_port_loads_no_jax_and_nothing_of_the_reference():
     "path",
     sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
     + ["chip_smoke.py", "tools/attention_ab.py", "tools/ssd_ab.py", "tests/torch_mesh_ranks.py",
-       "examples/torch_serve_batched.py"],
+       "examples/torch_serve_batched.py", "examples/torch_quickstart.py",
+       "examples/torch_train_100m.py", "examples/torch_translate_kernel.py",
+       "examples/torch_serve_daemon.py"],
 )
 def test_source_names_neither_jax_nor_the_reference_package(path):
     text = (ROOT / path).read_text()
