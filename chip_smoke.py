@@ -41,8 +41,14 @@ phase prints one JSON line:
                          (``local_heads``, timed in bf16), and the inputs it must refuse
                          (tolerance 2e-4 in fp32, 5e-2 in bf16)
 6. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
-                         weights from a seed): 16 requests through 8 slots; every attention
-                         call must have gone through the kernel (launch count); logits are
+                         weights from a seed): 16 requests through 8 slots, the decode step
+                         captured once as a CUDA graph and replayed (the Server's default;
+                         capture seconds, the graph's pool); every attention call must have
+                         gone through the kernel (launch count); the same requests through
+                         the eager loop (``cuda_graph=False``) must give the same tokens and
+                         launches, and the first replayed step's logits the eager step's
+                         (bit for bit expected; else the first op that differs is named,
+                         and more than the phase's tolerance fails); logits are
                          re-derived through the chunked PyTorch path and compared
 7. ``serve_mamba2``      the same on full-width mamba2_370m (48 mamba layers): every prefill
                          layer through the SSD kernel, decode in plain PyTorch; logits
@@ -117,7 +123,8 @@ phase prints one JSON line:
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
                          the shapes the main paths use
-20. ``serve_throughput`` per served model: tokens/s and completion latencies, with the card
+20. ``serve_throughput`` per served model: tokens/s and completion latencies, the graph's
+                         and the eager loop's, with the card
 
 Each serving path runs with every launch count set to 0 just before it and
 read just after, prints its initialisation and serving peaks of device memory
@@ -128,9 +135,10 @@ the larger of 1e-1 and twice the spread of ``"xla"`` against ``"chunked"``,
 report the share of tokens routed to other experts, and hold the same weights
 in float32 within 1e-3 (qwen2_moe at 2 of its layers, whisper at 2).
 ``--phases serve,...,serve_whisper,profile`` adds a ``torch.profiler`` pass over
-a few decode steps and a 512-token prefill of each served model (whisper: the
-prefill of its 8 x 1,500 frames), taken while it is on the card (device time
-by kernel, device busy share); it is not part of the default run, nor is
+a few decode steps (eager, and replayed from the Server's graph) and a
+512-token prefill of each served model (whisper: eager steps, and the prefill
+of its 8 x 1,500 frames), taken while it is on the card (device time by
+kernel, device busy share); it is not part of the default run, nor is
 ``--phases device,dryrun_all``, the dry-run's whole ``--all --mesh both`` sweep
 (one process an architecture; its wall time and its ``error`` cells).  The
 ``run`` line gives the wall time of the whole run and of each phase.
@@ -163,7 +171,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.models import Model, transformer  # noqa: E402
-from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
+from repro_torch.runtime import Request, ServeConfig, Server, serving  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
@@ -1268,12 +1276,139 @@ def logit_checks(model, batch, max_len, compare_impl, tol, spread, model32):
     return checks
 
 
+def counted_serve(server, requests):
+    """``server.serve(requests)`` with every launch count set to 0 just before
+    it and read just after; the Server's two step functions counted and timed
+    (the synchronise is the one sampling makes anyway right after), and a
+    mixture of experts' layer calls counted by path and step.  A replayed
+    decode step calls no layer in Python: it counts as the calls its graph
+    captured.  The logits of the second decode step (the first the graph
+    replays) are kept."""
+    steps = {"prefill": 0, "decode": 0}
+    step_ms = {"prefill": [], "decode": []}
+    nan_seen, kept = [], {}
+    current = {"step": None}
+    moe_calls = {k: {"capacity": 0, "exact": 0} for k in steps}
+    captured = {}       # the MoE calls the graph holds
+    moe_ffn = transformer.moe_ffn
+
+    def moe_counted(x, *args, **kw):
+        path = "capacity" if x.shape[0] > transformer.DENSE_PATH_MAX_TOKENS else "exact"
+        moe_calls[current["step"]][path] += 1
+        return moe_ffn(x, *args, **kw)
+
+    def counted(fn, key):
+        def wrapper(*args):
+            steps[key] += 1
+            current["step"] = key
+            calls = dict(moe_calls[key])
+            replays = 0 if server.graph is None else server.graph.replays
+            t = time.perf_counter()
+            logits, state = fn(*args)
+            torch.cuda.synchronize()
+            step_ms[key].append((time.perf_counter() - t) * 1e3)
+            nan_seen.append(torch.isnan(logits).any())
+            if key == "decode" and steps[key] == 2:
+                kept["logits"] = logits.clone()
+            if server.graph is not None and server.graph.replays > replays:
+                seen = {p: moe_calls[key][p] - n for p, n in calls.items()}
+                if any(seen.values()):      # this step captured the graph
+                    captured.update(seen)
+                else:
+                    for p, n in captured.items():
+                        moe_calls[key][p] += n
+            return logits, state
+        return wrapper
+
+    server._prefill = counted(server._prefill, "prefill")
+    server._decode = counted(server._decode, "decode")
+    transformer.moe_ffn = moe_counted
+    try:
+        reset_counts()              # the path starts here
+        t0 = time.perf_counter()
+        done = server.serve(requests)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()    # ... and ends here
+    finally:
+        transformer.moe_ffn = moe_ffn
+        del server._prefill, server._decode
+    L = server.model.cfg.n_layers
+    whole = all(n % L == 0 for c in moe_calls.values() for n in c.values())
+    moe_paths = None
+    if server.model.cfg.moe is not None and whole:
+        moe_paths = {"prefills_capacity": moe_calls["prefill"]["capacity"] // L,
+                     "prefills_exact": moe_calls["prefill"]["exact"] // L,
+                     "decode_steps_exact": moe_calls["decode"]["exact"] // L,
+                     "decode_steps_capacity": moe_calls["decode"]["capacity"] // L}
+    return {"done": done, "steps": steps, "step_ms": step_ms, "nan_seen": nan_seen,
+            "serve_s": serve_s, "launches": launches,
+            "attention_paths": dict(fa.flash_attention.launches_by_path),
+            "ssd_paths": dict(ssd.mamba2_ssd.launches_by_path), "moe_calls": moe_calls,
+            "moe_paths": moe_paths, "replayed_logits": kept["logits"]}
+
+
+class _OpOutputs(TorchDispatchMode):
+    """Each op's name and a copy of its first output, for the ops that are
+    neither views, nor in place, nor factories (``empty`` holds no values
+    yet): inside a capture the copies are captured too, and a replay fills
+    them."""
+
+    def __init__(self, limit=1 << 24):
+        super().__init__()
+        self.limit = limit
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        first = out[0] if isinstance(out, (tuple, list)) and out else out
+        if (isinstance(first, torch.Tensor) and not func.is_view
+                and not func._schema.is_mutable and "empty" not in str(func)
+                and 0 < first.numel() <= self.limit):
+            self.ops.append((str(func), first.detach().clone()))
+        return out
+
+
+def first_graph_difference(server):
+    """Where the Server's decode step captured in a CUDA graph and the same
+    step run eagerly part, on the Server's state and tokens as they stand:
+    both traced op by op, the first op whose output differs and by how much.
+    The state is put back after each run.  (The kernels' outputs show in the
+    next op that reads them.)"""
+    state = server._state
+    leaves = [t for leaf in state.values() for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+    saved = [t.clone() for t in leaves]
+
+    def restore():
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+
+    with _OpOutputs() as eager_log:
+        server._graph_step()
+    restore()
+    graph = torch.cuda.CUDAGraph()
+    with _OpOutputs() as graph_log:
+        with torch.cuda.graph(graph, stream=server.graph.stream):
+            server._graph_step()
+    graph.replay()
+    torch.cuda.synchronize()
+    restore()
+    for i, ((name, a), (gname, b)) in enumerate(zip(eager_log.ops, graph_log.ops)):
+        if name != gname or a.shape != b.shape or not torch.equal(a, b):
+            diff = (float((a.float() - b.float()).abs().max())
+                    if name == gname and a.shape == b.shape else None)
+            return {"index": i, "op": name, "graph_op": gname, "max_abs_diff": diff}
+    return {"index": None, "ops": [len(eager_log.ops), len(graph_log.ops)]}
+
+
 def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, cuts=None,
                fp32_layers=None, extra=None):
     """``Server.serve`` on the full-width ``arch`` (bf16, random weights from a
     seed; ``cuts`` changes the config, e.g. its depth, and is stated): 16
     requests with prompts of 64-512 tokens through 8 slots, greedy, after a
-    warm-up request.  Every launch count is set to 0 just before the run and
+    warm-up run of the same prompts, first with the decode step captured as
+    a CUDA graph (the Server's default), then through the eager loop, which
+    must give the same tokens and launches.  Every launch count is set to 0 just before the run and
     read just after; ``expected(prefills, forwards)`` gives the count each
     kernel must reach.  ``extra(ctx, server)`` then runs what the phase adds
     (with its own counts) and returns more prompts for the logit checks and
@@ -1314,56 +1449,19 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     requests = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32))
                 for i, n in enumerate(lengths)]
 
-    # warm-up outside the measured run: one short request through a second
-    # server on the same weights (library handles, allocator, first launches)
+    # warm-up outside the measured runs: the same prompts, 3 new tokens each,
+    # through a second server on the same weights (library handles, first
+    # launches, and the allocator's cache for every prompt length, so that
+    # the graph's run and the eager loop's, which follows it, find the same)
     warm = Server(cfg, dataclasses.replace(scfg, max_new_tokens=3), model.state_dict(), device=dev)
-    warm.serve([Request(uid=-1, prompt=requests[0].prompt[:64])])
+    warm.serve(requests)
     torch.cuda.synchronize()
     del warm, model
 
-    # count and time forward passes by wrapping the two step functions of the
-    # server; the synchronise is the one sampling makes anyway right after.
-    # A mixture of experts also counts its layers' calls by path and step
-    steps = {"prefill": 0, "decode": 0}
-    step_ms = {"prefill": [], "decode": []}
-    nan_seen = []
-    current = {"step": None}
-    moe_calls = {k: {"capacity": 0, "exact": 0} for k in steps}
-    moe_ffn = transformer.moe_ffn
-
-    def moe_counted(x, *args, **kw):
-        path = "capacity" if x.shape[0] > transformer.DENSE_PATH_MAX_TOKENS else "exact"
-        moe_calls[current["step"]][path] += 1
-        return moe_ffn(x, *args, **kw)
-
-    def counted(fn, key):
-        def wrapper(*args):
-            steps[key] += 1
-            current["step"] = key
-            t = time.perf_counter()
-            logits, state = fn(*args)
-            torch.cuda.synchronize()
-            step_ms[key].append((time.perf_counter() - t) * 1e3)
-            nan_seen.append(torch.isnan(logits).any())
-            return logits, state
-        return wrapper
-
-    server._prefill = counted(server._prefill, "prefill")
-    server._decode = counted(server._decode, "decode")
-
     torch.cuda.reset_peak_memory_stats()
-    transformer.moe_ffn = moe_counted
-    try:
-        reset_counts()              # the path starts here
-        t0 = time.perf_counter()
-        done = server.serve(requests)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        launches = read_counts()    # ... and ends here
-    finally:
-        transformer.moe_ffn = moe_ffn
-    attn_paths = dict(fa.flash_attention.launches_by_path)
-    ssd_paths = dict(ssd.mamba2_ssd.launches_by_path)
+    run = counted_serve(server, requests)       # the decode step as a CUDA graph
+    done, steps, launches = run["done"], run["steps"], run["launches"]
+    attn_paths, ssd_paths = run["attention_paths"], run["ssd_paths"]
     # this path's own: the memory held before its model was made is not counted
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
     ctx.setdefault("launches", {})[phase] = launches
@@ -1373,7 +1471,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     require([c.uid for c in done] == list(range(SERVE["n_requests"])), "completions out of order")
     require(all(len(c.tokens) == SERVE["max_new_tokens"] for c in done), "a completion is short")
     require(all(0 <= t < cfg.vocab for c in done for t in c.tokens), "a token outside the vocabulary")
-    require(not bool(torch.stack(nan_seen).any()), "NaN in the logits")
+    require(not bool(torch.stack(run["nan_seen"]).any()), "NaN in the logits")
     forwards = steps["prefill"] + steps["decode"]
     require(steps["prefill"] == SERVE["n_requests"], "not one prefill a request")
     want = expected(steps["prefill"], forwards)
@@ -1386,23 +1484,71 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     if launches["mamba2_ssd"]:  # bf16 serving: every prefill layer on the tensor cores
         require(ssd_paths == {"fma": 0, "mma": launches["mamba2_ssd"]},
                 f"{cfg.name}: SSD paths {ssd_paths}, expected mma only")
+    graph = server.graph
+    require(graph is not None and graph.replays == steps["decode"] - 1,
+            f"{cfg.name}: the decode step was not captured once and replayed at every later "
+            f"step ({None if graph is None else graph.replays} replays, {steps['decode']} steps)")
     moe_paths = None
     if cfg.moe is not None:
         # prompts above 256 tokens take the capacity path; the rest, and every
         # decode step at 8 slots, the exact one
         L = cfg.n_layers
         long_prompts = int((lengths > transformer.DENSE_PATH_MAX_TOKENS).sum())
-        moe_paths = {"prefills_capacity": moe_calls["prefill"]["capacity"] // L,
-                     "prefills_exact": moe_calls["prefill"]["exact"] // L,
-                     "decode_steps_exact": moe_calls["decode"]["exact"] // L,
-                     "decode_steps_capacity": moe_calls["decode"]["capacity"] // L}
-        require(all(n % L == 0 for calls in moe_calls.values() for n in calls.values()),
-                f"{cfg.name}: MoE calls {moe_calls} are not whole forward passes")
+        moe_paths = run["moe_paths"]
+        require(moe_paths is not None, f"{cfg.name}: MoE calls {run['moe_calls']} are not "
+                f"whole forward passes")
         require(moe_paths == {"prefills_capacity": long_prompts,
                               "prefills_exact": steps["prefill"] - long_prompts,
                               "decode_steps_exact": steps["decode"],
                               "decode_steps_capacity": 0},
                 f"{cfg.name}: MoE paths {moe_paths} for {long_prompts} prompts over 256 tokens")
+
+    # the same requests through the eager loop, on the same weights: the same
+    # tokens and launches, and the first replayed step's logits against the
+    # eager step's (the same kernels on the same shapes: bit for bit expected)
+    eager = Server(cfg, scfg, server.model.state_dict(), device=dev, cuda_graph=False)
+    erun = counted_serve(eager, requests)
+    eager_snap = eager.metrics_snapshot()
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    require([c.tokens for c in done] == [c.tokens for c in erun["done"]],
+            f"{cfg.name}: the graph's tokens differ from the eager loop's")
+    require((erun["launches"], erun["attention_paths"], erun["ssd_paths"], erun["moe_paths"])
+            == (launches, attn_paths, ssd_paths, moe_paths),
+            f"{cfg.name}: eager launches {erun['launches']} {erun['attention_paths']} "
+            f"{erun['ssd_paths']} {erun['moe_paths']}, the graph's {launches} {attn_paths} "
+            f"{ssd_paths} {moe_paths}")
+    first_graph = run["replayed_logits"].float()
+    first_diff = float((first_graph - erun["replayed_logits"].float()).abs().max())
+    graph_vs_eager = {"tokens_equal": True, "launches_equal": True,
+                      "first_replayed_step_bit_for_bit": bool(
+                          torch.equal(run["replayed_logits"], erun["replayed_logits"])),
+                      "first_replayed_step_max_abs_diff": first_diff,
+                      "first_different_op": None}
+    if not graph_vs_eager["first_replayed_step_bit_for_bit"]:
+        graph_vs_eager["first_different_op"] = first_graph_difference(server)
+        print(json.dumps({"phase": phase, "graph_vs_eager": graph_vs_eager}), flush=True)
+        require(first_diff <= tol, f"{cfg.name}: the first replayed step's logits differ from "
+                f"the eager step's by {first_diff} (tolerance {tol})")
+    ms = run["step_ms"]["decode"]
+    graph_fields = {
+        "capture_s": round(graph.capture_seconds, 3),
+        "pool_mib": round(graph.pool_bytes / 2**20, 1), "replays": graph.replays,
+        "warm_step_ms": round(ms[0], 3), "capture_step_ms": round(ms[1], 3),
+        "launches_a_replay": {w.__name__: n for w, (n, _) in
+                              zip(serving.KERNEL_WRAPPERS, graph.launches)},
+        "replayed_step_ms_p50": round(float(np.median(ms[2:])), 3)}
+    eager_ms = erun["step_ms"]["decode"]
+    eager_fields = {"serve_seconds": round(erun["serve_s"], 3),
+                    "tokens_per_s": eager_snap["tokens_per_s"],
+                    "decode_step_ms_mean": round(float(np.mean(eager_ms)), 3),
+                    "decode_step_ms_p50": round(float(np.median(eager_ms)), 3),
+                    "decode_step_ms_min": round(float(np.min(eager_ms)), 3),
+                    "prefill_ms_mean": round(float(np.mean(erun["step_ms"]["prefill"])), 3),
+                    "latency_ms_p50": eager_snap["latency_ms"]["p50"],
+                    "latency_ms_p99": eager_snap["latency_ms"]["p99"]}
+    ctx.setdefault("eager_snapshots", {})[cfg.name] = eager_snap
     snap = server.metrics_snapshot()
     ctx.setdefault("snapshots", {})[cfg.name] = snap
     ctx.setdefault("served", []).append(cfg.name)
@@ -1440,17 +1586,18 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
          moe=dataclasses.asdict(cfg.moe) if cfg.moe is not None else None,
          cuts=cuts or {}, dtype="bfloat16", params=n_params, weights_gb=round(w_gb, 3),
          init_seconds=round(init_s, 3), init_peak_gb=round(init_peak_gb, 3),
-         serve_seconds=round(serve_s, 3),
+         serve_seconds=round(run["serve_s"], 3),
          requests=len(done), prompt_lengths=[int(n) for n in lengths],
          tokens=sum(len(c.tokens) for c in done), prefills=steps["prefill"],
          decode_steps=steps["decode"], kernel_launches=launches, expected_launches=want,
          attention_launches_by_path=attn_paths, ssd_launches_by_path=ssd_paths,
          moe_paths=moe_paths,
-         prefill_ms_mean=round(float(np.mean(step_ms["prefill"])), 3),
-         decode_step_ms_mean=round(float(np.mean(step_ms["decode"])), 3),
-         decode_step_ms_p50=round(float(np.median(step_ms["decode"])), 3),
-         decode_step_ms_min=round(float(np.min(step_ms["decode"])), 3),
-         decode_step_ms_all=[round(t, 1) for t in step_ms["decode"]],
+         prefill_ms_mean=round(float(np.mean(run["step_ms"]["prefill"])), 3),
+         decode_step_ms_mean=round(float(np.mean(ms)), 3),
+         decode_step_ms_p50=round(float(np.median(ms)), 3),
+         decode_step_ms_min=round(float(np.min(ms)), 3),
+         decode_step_ms_all=[round(t, 1) for t in ms], graph=graph_fields,
+         eager=eager_fields, graph_vs_eager=graph_vs_eager,
          peak_memory_gb=round(peak_gb, 3), tokens_per_s=snap["tokens_per_s"],
          latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
          compared_with=compare_impl, logits_max_abs=first["logits_max_abs"],
@@ -3112,8 +3259,10 @@ def phase_serve_throughput(ctx):
     snapshots = ctx.get("snapshots")
     require(snapshots, "serve_throughput needs a serving phase")
     for name, snap in snapshots.items():
+        eager = ctx["eager_snapshots"][name]
         emit("serve_throughput", model=name, card=ctx.get("card"),
-             tokens_per_s=snap["tokens_per_s"],
+             tokens_per_s=snap["tokens_per_s"], eager_tokens_per_s=eager["tokens_per_s"],
+             eager_latency_ms_p50=eager["latency_ms"]["p50"],
              completions=snap["completions"], tokens=snap["tokens"],
              latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
              latency_ms_mean=snap["latency_ms"]["mean"], batch_slots=SERVE["batch_slots"],
@@ -3122,7 +3271,8 @@ def phase_serve_throughput(ctx):
 
 def _device_profile(fn, repeats):
     """``fn`` run ``repeats`` times: host wall ms a run (without the profiler),
-    then the device time by kernel from ``torch.profiler`` (device side only)."""
+    then the device time by kernel from ``torch.profiler`` (device side only;
+    a CUDA graph's kernels are traced one by one)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -3157,6 +3307,8 @@ def _device_profile(fn, repeats):
 def profile_server(ctx, server):
     """Device time by kernel from ``torch.profiler`` for one served model:
     over decode steps of the model at 8 slots (cache filled by a 256-token
+    prefill), eager (``Model.decode_step``) and replayed from the Server's
+    CUDA graph (``Server._decode`` on the Server's state, filled by the same
     prefill), and over the prefill of one 512-token prompt; the busy share is
     device time over host wall time.  Run by each serving phase while its
     model is on the card, when the ``profile`` phase is asked for."""
@@ -3175,6 +3327,21 @@ def profile_server(ctx, server):
         decode()
     torch.cuda.synchronize()
     dec = _device_profile(decode, 5)
+    _, state = model.prefill({"tokens": tokens}, SERVE["max_len"])
+    server._fill_all(state, tokens.shape[1])
+    del state
+
+    def replay():
+        logits, _ = Server._decode(server, step, server._state)   # the graph's replay
+        logits.argmax(-1).cpu()
+
+    replays = server.graph.replays
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    rep = _device_profile(replay, 5)
+    require(server.graph.replays == replays + 13, f"{cfg.name}: the profiled steps did not "
+            f"replay the graph")
     prompt = tokens[:1].repeat(1, 2)                       # one prompt of 512 tokens
 
     def prefill():
@@ -3189,7 +3356,7 @@ def profile_server(ctx, server):
          decode_steps=5, wall_ms_per_step=dec["wall_ms"], device_ms_per_step=dec["device_ms"],
          device_busy_share=dec["device_busy_share"],
          device_kernels_per_step=dec["device_kernels"], top=dec["top"],
-         decode=dec, prefill_512={"prompts": 3, **pre})
+         decode=dec, graph_decode=rep, prefill_512={"prompts": 3, **pre})
 
 
 def profile_whisper(ctx, model, frames):

@@ -379,11 +379,19 @@ class Model(nn.Module):
         return h, {"kv": caches, "pos": pos}
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
+    def decode_step(self, tokens: torch.Tensor, state: State,
+                    check_room: bool = True) -> Tuple[torch.Tensor, State]:
         """One new token per sequence against the cached state.  The caches
         and states in ``state`` are updated in place; the returned state
-        shares them.  Positions are the 1-D ``state["pos"]``: a vlm decodes
-        with plain RoPE after an M-RoPE prefill, as the reference does."""
+        shares them, with a new ``pos``.  Positions are the 1-D
+        ``state["pos"]``: a vlm decodes with plain RoPE after an M-RoPE
+        prefill, as the reference does.  A KV insert past the cache's end
+        raises ``ValueError`` after one host read of the positions; with
+        ``check_room=False`` (a step captured in a CUDA graph, which reads
+        nothing back) the caller has checked them on the host
+        (:func:`repro_torch.models.transformer.check_room`), and on the card
+        nothing else in the dense, moe, vlm, ssm and hybrid steps reads a
+        value back.  The audio step checks always."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = state["pos"] + 1
@@ -402,12 +410,13 @@ class Model(nn.Module):
                 cfg, self.params, tokens, positions=state["pos"][:, None],
                 attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
                 cache_positions=cache_pos, ssm_states=state["ssm"],
-                conv_states=state["conv"], decode=True, tp=self._plan,
+                conv_states=state["conv"], decode=True, tp=self._plan, check_room=check_room,
             )
             return h, {**new, "pos": pos}
         h, kv = transformer.forward(
             cfg, self.params, tokens, positions=state["pos"][:, None],
             attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos, tp=self._plan,
+            check_room=check_room,
         )
         return h, {"kv": kv, "pos": pos}
 

@@ -167,6 +167,7 @@ def forward(
     decode: bool = False,
     remat: str = "none",
     tp: ModelAxis = WHOLE,
+    check_room: bool = True,
 ) -> Tuple[torch.Tensor, State]:
     """Returns (final hidden states, ``{"kv", "ssm", "conv"}``).
 
@@ -177,7 +178,8 @@ def forward(
     ``ssm_states`` no state is kept and the returned ones are ``None``: the
     reference makes and returns fresh zeroed states there, which training
     drops.  As in the dense path, a KV insert past the cache's end raises
-    ``ValueError`` where the reference clamps.  ``remat`` ``dots`` / ``full``
+    ``ValueError`` where the reference clamps (unless ``check_room`` is
+    False: the caller has checked on the host).  ``remat`` ``dots`` / ``full``
     recompute each group of mamba layers and its shared-block application in
     backward, as the reference checkpoints its group body (the tail layers,
     as there, are not).  ``tp`` is the plan of this rank's share of the
@@ -191,7 +193,7 @@ def forward(
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     period = cfg.attn_period or (cfg.n_layers + 1)
     apps = n_attn_applications(cfg)
-    if kv_caches is not None:
+    if kv_caches is not None and check_room:
         check_cache_room(positions, S, kv_caches[0].shape[2])
     # the same for every application: computed once
     rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta) if apps else None

@@ -495,6 +495,14 @@ def check_cache_room(positions: torch.Tensor, S: int, max_len: int) -> None:
     if positions.device.type == "meta":
         return
     first, last = torch.stack(torch.aminmax(positions[:, 0])).tolist()
+    check_room(first, last, S, max_len)
+
+
+def check_room(first: int, last: int, S: int, max_len: int) -> None:
+    """:func:`check_cache_room` on positions the caller holds on the host:
+    the first and last of the rows' starts.  A step captured in a CUDA graph
+    reads nothing back, so its caller checks here (``check_room=False`` to
+    the step)."""
     if first < 0 or last + S > max_len:
         raise ValueError(
             f"KV cache of length {max_len} cannot take {S} token(s) starting at "
@@ -514,6 +522,7 @@ def forward(
     mrope_positions: Optional[torch.Tensor] = None,  # (B, S, 3): vlm only
     remat: str = "none",                             # none | dots | full
     tp: ModelAxis = WHOLE,
+    check_room: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (final hidden states (B,S,D), the KV caches or None).
 
@@ -525,7 +534,8 @@ def forward(
     The caches are written **in place** and handed back for the reference's
     calling convention.  The reference's insert clamps a write that would run
     past the cache's end (``dynamic_update_slice``); this raises ``ValueError``
-    instead.
+    instead, after one host read of the positions, unless ``check_room`` is
+    False: then the caller has checked them (:func:`check_room`).
 
     ``remat`` ``dots`` / ``full`` recompute each block in backward
     (:func:`repro_torch.models.common.remat_call`).  The embedding is looked
@@ -542,7 +552,7 @@ def forward(
         h = torch.cat([proj, h[:, P:]], dim=1)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-    if kv_caches is not None:
+    if kv_caches is not None and check_room:
         check_cache_room(positions, S, kv_caches[0].shape[2])
 
     # the same for every layer: computed once

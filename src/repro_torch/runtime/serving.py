@@ -11,9 +11,19 @@ Counterpart of ``repro.runtime.serving``.  A small but real serving loop:
 * greedy or temperature sampling (the draw is numpy's, on the host, so that
   the same seed picks the same tokens as the reference given equal logits).
 
-The reference jits its two step functions; PyTorch runs them eagerly.  The
-slot state is updated **in place** (``_set_slot``, the KV insert of
-``transformer.block``), where the reference builds new arrays.
+The reference jits its decode step into one compiled program.  Here, on a
+CUDA device, the decode step is captured once per ``Server`` as a CUDA graph
+and replayed (``cuda_graph``, on by default; :class:`StepGraph`): the first
+step of the Server's life runs eagerly on the stream the capture uses, the
+second is captured and replayed, and every later step copies the tokens in,
+replays, and samples from the graph's logits on the host.  On the CPU every
+step runs eagerly.  Prefill, which the reference jits once a prompt length,
+runs eagerly.  The slot state is updated **in place** (``_set_slot``, the KV
+insert of ``transformer.block``), where the reference builds new arrays, and
+it lives as long as the Server: each ``serve`` call broadcasts its first
+prefill into the same buffers, so one capture serves every call.  A graph
+cannot raise, so the Server keeps each slot's position on the host and
+raises the cache-overflow ``ValueError`` before the step, on either path.
 """
 
 from __future__ import annotations
@@ -21,17 +31,113 @@ from __future__ import annotations
 import dataclasses
 import queue
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import obs
 from ..device import DeviceLike, resolve_device
+from ..kernels.flash_attention import flash_attention
+from ..kernels.mamba2_ssd import mamba2_ssd
 from ..models import Model, ModelConfig, param_dtypes
+from ..models.transformer import check_room
 from ..obs import Histogram
 
 State = Dict[str, Any]
+
+#: the kernel wrappers, each with its launch counter (``launches``,
+#: ``launches_by_path``), which a replayed graph keeps true
+KERNEL_WRAPPERS = (flash_attention, mamba2_ssd)
+#: per wrapper of ``KERNEL_WRAPPERS``: its launches and its launches by path
+Launches = Tuple[Tuple[int, Dict[str, int]], ...]
+
+
+def launch_counts() -> Launches:
+    return tuple((w.launches, dict(w.launches_by_path)) for w in KERNEL_WRAPPERS)
+
+
+def launches_since(before: Launches) -> Launches:
+    return tuple((n - n0, {p: c - paths0.get(p, 0) for p, c in paths.items()})
+                 for (n, paths), (n0, paths0) in zip(launch_counts(), before))
+
+
+def add_launches(launches: Launches, times: int) -> None:
+    """Adds ``times`` x ``launches`` to the wrappers' counters."""
+    for w, (n, paths) in zip(KERNEL_WRAPPERS, launches):
+        w.launches += times * n
+        for p, c in paths.items():
+            w.launches_by_path[p] += times * c
+
+
+class StepGraph:
+    """A step function captured once as a CUDA graph and replayed: the
+    counterpart of the reference's ``jax.jit`` for a step of fixed shapes.
+
+    :meth:`warm` runs the step eagerly on the side stream that the capture
+    will use (kernels loaded, the attention's split tickets allocated, the
+    library's handles made for that stream); :meth:`capture` records it, and
+    raises if the step cannot be captured; :meth:`replay` runs what it
+    recorded.  What the step returned at capture is where every replay
+    writes its output.  The kernel wrappers count their Python calls, so
+    capture raises their counters for launches that did not run and a
+    replay raises none: :meth:`capture` takes back what it added and
+    :meth:`replay` adds what one replay launches, path by path, so that
+    every counter equals the launches that ran.  ``capture_seconds`` and
+    ``pool_bytes`` (the memory the graph's private pool reserved) are set by
+    the capture."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Optional[Launches] = None    # what one replay launches
+        self.replays = 0
+        self.capture_seconds: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+
+    def warm(self, step: Callable[[], Any]) -> Any:
+        self.stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = step()
+        current.wait_stream(self.stream)
+        return out
+
+    def capture(self, step: Callable[[], Any]) -> Any:
+        before = launch_counts()
+        out = self._record(step)
+        self.launches = launches_since(before)
+        add_launches(self.launches, -1)
+        return out
+
+    def replay(self) -> None:
+        self._replay()
+        add_launches(self.launches, 1)
+        self.replays += 1
+
+    def _record(self, step: Callable[[], Any]) -> Any:
+        # not through torch.cuda.graph, which empties the allocator's cache
+        # first: every prefill after it would allocate its memory anew.  The
+        # graph's private pool takes segments of its own, so the reserved
+        # memory grows by the pool.
+        torch.cuda.synchronize(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            self.graph.capture_begin()
+            try:
+                out = step()
+            finally:
+                self.graph.capture_end()
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        return out
+
+    def _replay(self) -> None:
+        self.graph.replay()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +172,18 @@ class Server:
     the weights are never held twice.
     Attention goes through ``attn_impl`` and the SSD scan of the ssm and
     hybrid families through ``ssd_impl``: the CUDA kernels by default, which
-    on CPU tensors are their plain versions."""
+    on CPU tensors are their plain versions.
+
+    ``cuda_graph`` (the reference's jit; on by default) captures the decode
+    step once as a CUDA graph and replays it (:class:`StepGraph`,
+    ``self.graph`` from the first decode step on); off, every step runs
+    eagerly, as it always does on the CPU.  Nothing is allocated before the first
+    ``serve``."""
 
     def __init__(
         self, model_cfg: ModelConfig, cfg: ServeConfig, params: Mapping[str, torch.Tensor],
         device: DeviceLike = "cuda", attn_impl: str = "hopper", ssd_impl: str = "hopper",
+        cuda_graph: bool = True,
     ):
         self.device = resolve_device(device)
         self.model = Model(model_cfg, attn_impl=attn_impl, ssd_impl=ssd_impl, device=self.device,
@@ -82,6 +195,15 @@ class Server:
         }
         self.model.load_state_dict(adopted, assign=True)
         self.cfg = cfg
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self.graph: Optional[StepGraph] = None
+        # every slot's decode state, the graph's input tokens and its logits:
+        # made at first use, then kept for the Server's life
+        self._state: Optional[State] = None
+        self._graph_tokens: Optional[torch.Tensor] = None
+        self._graph_logits: Optional[torch.Tensor] = None
+        # the host's mirror of state["pos"]
+        self._positions = np.zeros(cfg.batch_slots, np.int64)
         # serve-level metrics: always on (one histogram append per finished sequence)
         self._latency_ms = Histogram()
         self._tokens_done = 0
@@ -106,8 +228,45 @@ class Server:
         return self.model.logits(h[:, -1:])[:, 0], state
 
     def _decode(self, tokens: torch.Tensor, state: State):
-        h, new_state = self.model.decode_step(tokens, state)
-        return self.model.logits(h[:, -1:])[:, 0], new_state
+        """One decode step of every slot: ``state`` (the Server's own) is
+        updated in place and handed back with the step's logits."""
+        if "kv" in state:   # a graph cannot raise: the host's mirror is checked
+            check_room(int(self._positions.min()), int(self._positions.max()), 1,
+                       state["kv"][0].shape[2])
+        if self.cuda_graph:
+            logits = self._graph_decode(tokens)
+        else:
+            logits = self._step(tokens, check_room=True)
+        self._positions += 1
+        return logits, state
+
+    def _graph_decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The first step of the Server's life eagerly on the capture's
+        stream, the second captured and replayed, every later one replayed."""
+        if self._graph_tokens is None:
+            self._graph_tokens = torch.empty_like(tokens)
+        self._graph_tokens.copy_(tokens)
+        if self.graph is None:
+            self.graph = StepGraph(self.device)
+            return self.graph.warm(self._graph_step)
+        if self._graph_logits is None:
+            self._graph_logits = self.graph.capture(self._graph_step)
+        self.graph.replay()
+        return self._graph_logits
+
+    def _graph_step(self) -> torch.Tensor:
+        """The step that the graph holds: on the graph's tokens, reading
+        nothing back to the host."""
+        return self._step(self._graph_tokens, check_room=False)
+
+    def _step(self, tokens: torch.Tensor, check_room: bool) -> torch.Tensor:
+        """``tokens`` against the Server's state, which is updated in place
+        (``pos`` too); returns the logits.  With ``check_room=False`` nothing
+        is read back to the host: the room is checked on the host's mirror
+        before the step."""
+        h, new_state = self.model.decode_step(tokens, self._state, check_room=check_room)
+        self._state["pos"].copy_(new_state["pos"])
+        return self.model.logits(h[:, -1:])[:, 0]
 
     def _sample(self, logits: torch.Tensor, rng: np.random.Generator) -> np.ndarray:
         if self.cfg.temperature <= 0.0:
@@ -166,14 +325,13 @@ class Server:
             logits, st = self._prefill(self._tokens(req.prompt[None, :]))  # (1, L)
             tok = int(self._sample(logits, rng)[0])
             if state is None:
-                # first fill: broadcast single-slot state into the batch
-                state = self._map_state(
-                    lambda x, ax: x.repeat_interleave(cfg.batch_slots, dim=ax), st
-                )
+                # this call's first fill: broadcast into every slot
+                state = self._fill_all(st, len(req.prompt))
             else:
                 self._map_state2(
                     lambda full, one, ax: self._set_slot(full, one, slot, ax), state, st
                 )
+                self._positions[slot] = len(req.prompt)
             slot_tokens[slot].append(tok)
             next_tokens[slot] = tok
 
@@ -227,6 +385,19 @@ class Server:
                     fn(a, b, ax)
             else:
                 fn(leaf, one[key], ax)
+
+    def _fill_all(self, one: State, length: int) -> State:
+        """Writes ``one`` (the prefill state of one sequence, or of every
+        slot) into every slot of the Server's state, **in place**, and sets
+        every slot's position to ``length``; the state is made at first
+        use."""
+        if self._state is None:
+            slots = self.cfg.batch_slots
+            self._state = self._map_state(
+                lambda x, ax: x.new_empty(x.shape[:ax] + (slots,) + x.shape[ax + 1:]), one)
+        self._map_state2(lambda full, o, ax: full.copy_(o), self._state, one)
+        self._positions[:] = length
+        return self._state
 
     @staticmethod
     def _set_slot(full: torch.Tensor, one: torch.Tensor, slot: int, ax: int) -> None:

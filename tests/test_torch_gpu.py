@@ -3,8 +3,9 @@
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies; on one without a card each test
 skips.  Inputs are drawn with numpy from fixed seeds; each kernel is held
-against its plain PyTorch version on the same tensors, and the trainer
-against itself.  ``python3 chip_smoke.py`` runs the full sweep.
+against its plain PyTorch version on the same tensors, the trainer against
+itself, and the Server's captured decode step against its eager loop.
+``python3 chip_smoke.py`` runs the full sweep.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from repro_torch.data import DataConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import ops
+from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig
-from repro_torch.runtime import TrainConfig, Trainer
+from repro_torch.runtime import Request, ServeConfig, Server, TrainConfig, Trainer
 
 NO_CARD = "no CUDA device: the CUDA kernel has no interpret mode"
 
@@ -147,3 +149,42 @@ def test_train_cli_with_fsdp_on_one_nccl_rank(tmp_path):
     assert rec["mesh"] == {"data": 1, "model": 1} and rec["fsdp"] is True
     assert len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
     assert rec["peak_memory_gb"] > 0
+
+
+def _launches_by_path():
+    return {"flash_attention": dict(fa.flash_attention.launches_by_path),
+            "mamba2_ssd": dict(ssd.mamba2_ssd.launches_by_path)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm_3b", "zamba2_2_7b"])
+def test_server_graph_matches_eager_on_the_card(arch):
+    """Reduced bf16 models served with the decode step captured once as a CUDA
+    graph and with the eager loop: the same tokens, and the same launches by
+    path (every replay counted as the launches it ran).  Past the cache's
+    end both raise the model's ``ValueError`` before the step."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    cfg = tconfigs.reduced_config(arch)
+    weights = Model(cfg, device="cuda").init(seed=0).state_dict()
+    rng = np.random.default_rng(0)
+    requests = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=n).astype(np.int32))
+                for i, n in enumerate((5, 9, 17, 12, 7, 20))]
+    scfg = ServeConfig(batch_slots=4, max_len=64, max_new_tokens=6, eos=-1)
+    runs = {}
+    for graph in (True, False):
+        server = Server(cfg, scfg, weights, device="cuda", cuda_graph=graph)
+        before = _launches_by_path()
+        done = server.serve(requests)
+        torch.cuda.synchronize()
+        after = _launches_by_path()
+        runs[graph] = ([c.tokens for c in done],
+                       {k: {p: n - before[k][p] for p, n in v.items()} for k, v in after.items()})
+        assert (server.graph is not None) == graph
+    assert runs[True] == runs[False]
+    assert runs[True][1]["flash_attention"]["split"] > 0
+    for graph in (True, False):
+        server = Server(cfg, ServeConfig(batch_slots=2, max_len=8, max_new_tokens=4, eos=-1),
+                        weights, device="cuda", cuda_graph=graph)
+        with pytest.raises(ValueError, match="KV cache of length 8 cannot take 1 token"):
+            server.serve([Request(uid=0, prompt=np.arange(1, 7, dtype=np.int32))])
