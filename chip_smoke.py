@@ -41,15 +41,25 @@ phase prints one JSON line:
                          (``local_heads``, timed in bf16), and the inputs it must refuse
                          (tolerance 2e-4 in fp32, 5e-2 in bf16)
 6. ``serve``             ``Server.serve`` on full-width stablelm_3b (32 layers, bf16, random
-                         weights from a seed): 16 requests through 8 slots, the decode step
-                         captured once as a CUDA graph and replayed (the Server's default;
-                         capture seconds, the graph's pool); every attention call must have
-                         gone through the kernel (launch count); the same requests through
-                         the eager loop (``cuda_graph=False``) must give the same tokens and
-                         launches, and the first replayed step's logits the eager step's
-                         (bit for bit expected; else the first op that differs is named,
-                         and more than the phase's tolerance fails); logits are
-                         re-derived through the chunked PyTorch path and compared
+                         weights from a seed): 16 requests through 8 slots through the eager
+                         loop (``cuda_graph=False``), then with the decode step and each
+                         prompt length's prefill captured as CUDA graphs (the Server's
+                         default), each Server after a warm-up of its own that serves the
+                         same prompts (the graph Server captures its graphs there: the
+                         warm-up seconds are the cost at first sight); the graph's run
+                         replays every step and prefill; every attention call must have
+                         gone through the kernel (launch count); both runs must give the
+                         same tokens, launches by path and MoE paths, and the first
+                         replayed step's logits the eager step's (bit for bit expected;
+                         else the first op that differs is named, and more than the
+                         phase's tolerance fails); three replayed prefills (the longest
+                         prompt's among them) must equal an eager ``Model.prefill`` bit for
+                         bit, logits and state; the prefill graphs' count, recaptures,
+                         capture seconds and shared pool (at most 1.5 x the largest of the
+                         eager prefill's peak temporaries over the served lengths + 64
+                         MiB), prefill ms eager against replayed, and each
+                         run's peak (the graph's at most the eager one's + 2 GiB); logits
+                         are re-derived through the chunked PyTorch path and compared
 7. ``serve_mamba2``      the same on full-width mamba2_370m (48 mamba layers): every prefill
                          layer through the SSD kernel, decode in plain PyTorch; logits
                          against ``ssd_impl="chunked"``
@@ -63,7 +73,9 @@ phase prints one JSON line:
                          ``Model.prefill`` and 8 decode steps
 11. ``serve_llama4``     the same on llama4_scout_17b_a16e at full width and 4 of its 48
                          layers (one global period; 48 are 200.7 GiB), then one 8,448-token
-                         prompt across the 8,192-token attention chunk and 4 decode steps
+                         prompt across the 8,192-token attention chunk and 4 decode steps,
+                         eager and through a replayed prefill graph (the same tokens,
+                         launches and MoE paths; the prefill bit for bit)
 12. ``serve_gemma3``,   ``Server.serve`` on full-width gemma3_1b (26 layers, heads of 256,
     ``serve_qwen2_7b``,  a 512-token window on 5 of 6 layers), qwen2_7b (28 layers, GQA 7)
     ``serve_granite``    and granite_8b (36 layers, GQA 4), as ``serve``, each with the
@@ -136,7 +148,8 @@ report the share of tokens routed to other experts, and hold the same weights
 in float32 within 1e-3 (qwen2_moe at 2 of its layers, whisper at 2).
 ``--phases serve,...,serve_whisper,profile`` adds a ``torch.profiler`` pass over
 a few decode steps (eager, and replayed from the Server's graph) and a
-512-token prefill of each served model (whisper: eager steps, and the prefill
+512-token prefill of each served model (eager, and replayed from the
+Server's prefill graph of that length; whisper: eager steps, and the prefill
 of its 8 x 1,500 frames), taken while it is on the card (device time by
 kernel, device busy share); it is not part of the default run, nor is
 ``--phases device,dryrun_all``, the dry-run's whole ``--all --mesh both`` sweep
@@ -159,6 +172,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -171,7 +185,9 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.models import Model, transformer  # noqa: E402
+from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.runtime import Request, ServeConfig, Server, serving  # noqa: E402
+from repro_torch.runtime.serving import StepGraph  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
@@ -1276,33 +1292,53 @@ def logit_checks(model, batch, max_len, compare_impl, tol, spread, model32):
     return checks
 
 
+#: the MoE layer calls that each graph (the decode step's, a prompt length's
+#: prefill) captured: what one replay of it runs
+CAPTURED_MOE = weakref.WeakKeyDictionary()
+
+
 def counted_serve(server, requests):
     """``server.serve(requests)`` with every launch count set to 0 just before
     it and read just after; the Server's two step functions counted and timed
     (the synchronise is the one sampling makes anyway right after), and a
     mixture of experts' layer calls counted by path and step.  A replayed
-    decode step calls no layer in Python: it counts as the calls its graph
-    captured.  The logits of the second decode step (the first the graph
-    replays) are kept."""
+    graph (the decode step's, or a prompt length's prefill) calls no layer in
+    Python: it counts as the calls its graph captured (:data:`CAPTURED_MOE`,
+    kept by every capture of the graph, in this call or an earlier one), and
+    the calls a capture makes run nothing and count for nothing.  Each step
+    is kept as replayed or not, and the logits of the second decode step."""
     steps = {"prefill": 0, "decode": 0}
     step_ms = {"prefill": [], "decode": []}
+    replayed = {"prefill": [], "decode": []}
     nan_seen, kept = [], {}
     current = {"step": None}
     moe_calls = {k: {"capacity": 0, "exact": 0} for k in steps}
-    captured = {}       # the MoE calls the graph holds
-    moe_ffn = transformer.moe_ffn
+    capturing = {"capacity": 0, "exact": 0}
+    moe_ffn, capture = transformer.moe_ffn, StepGraph.capture
 
     def moe_counted(x, *args, **kw):
         path = "capacity" if x.shape[0] > transformer.DENSE_PATH_MAX_TOKENS else "exact"
-        moe_calls[current["step"]][path] += 1
+        if torch.cuda.is_current_stream_capturing():
+            capturing[path] += 1
+        else:
+            moe_calls[current["step"]][path] += 1
         return moe_ffn(x, *args, **kw)
+
+    def capture_counted(graph, step):
+        capturing.update(capacity=0, exact=0)
+        out = capture(graph, step)
+        CAPTURED_MOE[graph] = dict(capturing)
+        return out
+
+    def graph_of(key, args):
+        return server.graph if key == "decode" else server.prefill_graphs.get(args[0].shape[1])
 
     def counted(fn, key):
         def wrapper(*args):
             steps[key] += 1
             current["step"] = key
-            calls = dict(moe_calls[key])
-            replays = 0 if server.graph is None else server.graph.replays
+            graph = graph_of(key, args)
+            replays = 0 if graph is None else graph.replays
             t = time.perf_counter()
             logits, state = fn(*args)
             torch.cuda.synchronize()
@@ -1310,19 +1346,17 @@ def counted_serve(server, requests):
             nan_seen.append(torch.isnan(logits).any())
             if key == "decode" and steps[key] == 2:
                 kept["logits"] = logits.clone()
-            if server.graph is not None and server.graph.replays > replays:
-                seen = {p: moe_calls[key][p] - n for p, n in calls.items()}
-                if any(seen.values()):      # this step captured the graph
-                    captured.update(seen)
-                else:
-                    for p, n in captured.items():
-                        moe_calls[key][p] += n
+            graph = graph_of(key, args)
+            replayed[key].append(graph is not None and graph.replays > replays)
+            if replayed[key][-1]:
+                for p, n in CAPTURED_MOE.get(graph, {}).items():
+                    moe_calls[key][p] += n
             return logits, state
         return wrapper
 
     server._prefill = counted(server._prefill, "prefill")
     server._decode = counted(server._decode, "decode")
-    transformer.moe_ffn = moe_counted
+    transformer.moe_ffn, StepGraph.capture = moe_counted, capture_counted
     try:
         reset_counts()              # the path starts here
         t0 = time.perf_counter()
@@ -1331,7 +1365,7 @@ def counted_serve(server, requests):
         serve_s = time.perf_counter() - t0
         launches = read_counts()    # ... and ends here
     finally:
-        transformer.moe_ffn = moe_ffn
+        transformer.moe_ffn, StepGraph.capture = moe_ffn, capture
         del server._prefill, server._decode
     L = server.model.cfg.n_layers
     whole = all(n % L == 0 for c in moe_calls.values() for n in c.values())
@@ -1341,11 +1375,113 @@ def counted_serve(server, requests):
                      "prefills_exact": moe_calls["prefill"]["exact"] // L,
                      "decode_steps_exact": moe_calls["decode"]["exact"] // L,
                      "decode_steps_capacity": moe_calls["decode"]["capacity"] // L}
-    return {"done": done, "steps": steps, "step_ms": step_ms, "nan_seen": nan_seen,
-            "serve_s": serve_s, "launches": launches,
+    return {"done": done, "steps": steps, "step_ms": step_ms, "replayed": replayed,
+            "nan_seen": nan_seen, "serve_s": serve_s, "launches": launches,
             "attention_paths": dict(fa.flash_attention.launches_by_path),
             "ssd_paths": dict(ssd.mamba2_ssd.launches_by_path), "moe_calls": moe_calls,
-            "moe_paths": moe_paths, "replayed_logits": kept["logits"]}
+            "moe_paths": moe_paths, "replayed_logits": kept.get("logits")}
+
+
+def warm_up(server, requests):
+    """:func:`counted_serve` of the measured run's prompts through ``server``
+    itself, 3 new tokens each, outside the measured runs: library handles,
+    first launches, the allocator's cache for every prompt length, and on
+    the graph path a prefill graph for every prompt length and the decode
+    graph, captured here as the reference compiles at the first call of a
+    shape."""
+    cfg = server.cfg
+    server.cfg = dataclasses.replace(cfg, max_new_tokens=3)
+    try:
+        return counted_serve(server, requests)
+    finally:
+        server.cfg = cfg
+
+
+def run_metrics(run):
+    """What ``Server.metrics_snapshot`` gives over a Server's life, for one
+    counted run alone (a Server's warm-up is not in it): tokens/s over the
+    run's seconds and the completions' latency."""
+    latency = Histogram()
+    for c in run["done"]:
+        latency.observe(c.latency_s * 1e3)
+    tokens = sum(len(c.tokens) for c in run["done"])
+    return {"completions": len(run["done"]), "tokens": tokens,
+            "tokens_per_s": round(tokens / run["serve_s"], 3),
+            "latency_ms": latency.snapshot()}
+
+
+def leaves(state):
+    """The tensors of a decode state, in key order."""
+    return [t for leaf in state.values() for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
+
+
+def prefill_temporaries(server, prompts):
+    """Length -> the eager prefill's own peak temporaries (MiB) of each
+    prompt ``(1, L)``: the growth of ``max_memory_allocated`` over one
+    ``Model.prefill`` of the Server's model and its logits, the one-sequence
+    state included."""
+    temporaries = {}
+    for tokens in prompts:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        h, _ = server.model.prefill({"tokens": tokens}, server.cfg.max_len)
+        server.model.logits(h[:, -1:])
+        torch.cuda.synchronize()
+        temporaries[tokens.shape[1]] = round((torch.cuda.max_memory_allocated() - base) / 2**20,
+                                             1)
+        del h
+    return temporaries
+
+
+def replayed_prefills(server, prompts):
+    """Each prompt ``(1, L)`` (``L`` has a prefill graph) prefilled by a replay
+    of the Server's graph and by an eager ``Model.prefill``: its logits and
+    its one-sequence state must be equal bit for bit (else the first op
+    where the two part is named, :func:`first_graph_difference`)."""
+    rows = []
+    for tokens in prompts:
+        length = tokens.shape[1]
+        graph = server.prefill_graphs[length]
+        replays = graph.replays
+        logits, state = server._prefill(tokens)
+        require(graph.replays == replays + 1,
+                f"{server.model.cfg.name}: the prefill of {length} tokens did not replay")
+        got = [logits.clone()] + [t.clone() for t in leaves(state)]
+        h, eager_state = server.model.prefill({"tokens": tokens}, server.cfg.max_len)
+        want = [server.model.logits(h[:, -1:])[:, 0]] + leaves(eager_state)
+        equal = [torch.equal(a, b) for a, b in zip(got, want)]
+        row = {"length": length, "logits_equal": equal[0], "state_equal": all(equal[1:])}
+        if not all(equal):
+            row["max_abs_diff"] = max(float((a.float() - b.float()).abs().max())
+                                      for a, b in zip(got, want))
+            row["first_different_op"] = first_graph_difference(
+                lambda: server._prefill_step(tokens), graph.stream)
+        rows.append(row)
+        del got, want, h, eager_state, logits, state
+    return rows
+
+
+def prefill_graph_fields(server, warm, run, erun, checks):
+    """The prefill graphs' line of a served model: how many, their capture
+    seconds (every capture, those of the times the graphs were captured anew,
+    ``recaptures``, included) and shared pool, the prefills eager (``erun``)
+    against replayed (``run``) and at first sight (``warm``: the eager
+    prefill and the capture), and the bit-for-bit checks of
+    :func:`replayed_prefills`."""
+    graphs = server.prefill_graphs.values()
+    ms, ems, first = (r["step_ms"]["prefill"] for r in (run, erun, warm))
+    return {"graphs": len(graphs), "recaptures": server.prefill_recaptures,
+            "capture_s": round(sum(g.capture_seconds for g in graphs), 3),
+            "pool_mib": round(sum(g.pool_bytes for g in graphs) / 2**20, 1),
+            "replays": sum(run["replayed"]["prefill"]),
+            "eager_ms_p50": round(float(np.median(ems)), 3),
+            "eager_ms_min": round(float(np.min(ems)), 3),
+            "replayed_ms_p50": round(float(np.median(ms)), 3),
+            "replayed_ms_min": round(float(np.min(ms)), 3),
+            "first_sight_ms_p50": round(float(np.median(first)), 3),
+            "seconds": {"eager": round(sum(ems) / 1e3, 3), "replayed": round(sum(ms) / 1e3, 3)},
+            "bit_for_bit": checks}
 
 
 class _OpOutputs(TorchDispatchMode):
@@ -1369,27 +1505,27 @@ class _OpOutputs(TorchDispatchMode):
         return out
 
 
-def first_graph_difference(server):
-    """Where the Server's decode step captured in a CUDA graph and the same
-    step run eagerly part, on the Server's state and tokens as they stand:
-    both traced op by op, the first op whose output differs and by how much.
-    The state is put back after each run.  (The kernels' outputs show in the
-    next op that reads them.)"""
-    state = server._state
-    leaves = [t for leaf in state.values() for t in (leaf if isinstance(leaf, tuple) else (leaf,))]
-    saved = [t.clone() for t in leaves]
+def first_graph_difference(step, stream, state=()):
+    """Where ``step`` captured in a CUDA graph on ``stream`` and the same step
+    run eagerly part: both traced op by op, the first op whose output
+    differs and by how much.  ``state`` (the tensors the step updates in
+    place) is put back after each run.  (The kernels' outputs show in the
+    next op that reads them.)  The Server's decode step on its state and
+    tokens as they stand is ``server._graph_step``, with the state's leaves;
+    a prefill, ``lambda: server._prefill_step(tokens)``."""
+    saved = [t.clone() for t in state]
 
     def restore():
-        for t, s in zip(leaves, saved):
+        for t, s in zip(state, saved):
             t.copy_(s)
 
     with _OpOutputs() as eager_log:
-        server._graph_step()
+        step()
     restore()
     graph = torch.cuda.CUDAGraph()
     with _OpOutputs() as graph_log:
-        with torch.cuda.graph(graph, stream=server.graph.stream):
-            server._graph_step()
+        with torch.cuda.graph(graph, stream=stream):
+            step()
     graph.replay()
     torch.cuda.synchronize()
     restore()
@@ -1405,12 +1541,23 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
                fp32_layers=None, extra=None):
     """``Server.serve`` on the full-width ``arch`` (bf16, random weights from a
     seed; ``cuts`` changes the config, e.g. its depth, and is stated): 16
-    requests with prompts of 64-512 tokens through 8 slots, greedy, after a
-    warm-up run of the same prompts, first with the decode step captured as
-    a CUDA graph (the Server's default), then through the eager loop, which
-    must give the same tokens and launches.  Every launch count is set to 0 just before the run and
+    requests with prompts of 64-512 tokens through 8 slots, greedy, first
+    through the eager loop (``cuda_graph=False``), then with the decode step
+    and each prompt length's prefill captured as CUDA graphs (the Server's
+    default), which must give the same tokens and launches.  Each Server
+    first serves the same prompts with 3 new tokens each (its warm-up: there
+    the graph Server captures a prefill graph for every prompt length and
+    its decode graph, so that its measured run replays them all), and the
+    eager one is dropped before the graph's run, so that each run's memory
+    peak holds its own Server alone.  Every launch count is set to 0 just before the run and
     read just after; ``expected(prefills, forwards)`` gives the count each
-    kernel must reach.  ``extra(ctx, server)`` then runs what the phase adds
+    kernel must reach.  Three replayed prefills (the longest prompt's among
+    them) must equal an eager ``Model.prefill`` bit for bit, logits and
+    state, and the prefill graphs' shared pool must stay within 1.5 x the
+    largest of the eager prefill's peak temporaries over the served lengths
+    + 64 MiB (a mixture of experts' are largest below 257 tokens, on its
+    exact path, not at the longest prompt).
+    ``extra(ctx, server)`` then runs what the phase adds
     (with its own counts) and returns more prompts for the logit checks and
     fields to print.  Then the logits of each check prompt's prefill and
     first decode step through the kernels are held against those through
@@ -1425,7 +1572,8 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     agree within 1e-3 and pick the same tokens on the first prompt.
 
     The phase's model is its only one on the card: it is dropped at the end,
-    and the throughput line and the profile keep only what they need."""
+    prefill graphs and pool included, and the throughput line and the
+    profile keep only what they need."""
     cfg = dataclasses.replace(get_config(arch), **(cuts or {}))
     dev = DEVICE
     base_bytes = torch.cuda.memory_allocated()
@@ -1443,23 +1591,30 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     # the weights are drawn in place, block by block, and adopted: no second copy
     require(init_peak_gb <= w_gb + 4.0, f"{cfg.name}: initialisation peak "
             f"{init_peak_gb:.2f} GiB over {w_gb:.2f} GiB of weights")
+    del model
 
     rng = np.random.default_rng(SERVE["seed"])
     lengths = rng.integers(64, 513, size=SERVE["n_requests"])
     requests = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32))
                 for i, n in enumerate(lengths)]
 
-    # warm-up outside the measured runs: the same prompts, 3 new tokens each,
-    # through a second server on the same weights (library handles, first
-    # launches, and the allocator's cache for every prompt length, so that
-    # the graph's run and the eager loop's, which follows it, find the same)
-    warm = Server(cfg, dataclasses.replace(scfg, max_new_tokens=3), model.state_dict(), device=dev)
-    warm.serve(requests)
-    torch.cuda.synchronize()
-    del warm, model
-
+    # the eager loop, on the same weights: its warm-up, then its measured run
+    eager = Server(cfg, scfg, server.model.state_dict(), device=dev, cuda_graph=False)
+    ewarm = warm_up(eager, requests)
     torch.cuda.reset_peak_memory_stats()
-    run = counted_serve(server, requests)       # the decode step as a CUDA graph
+    erun = counted_serve(eager, requests)
+    eager_peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 2**30
+    eager_snap = run_metrics(erun)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the graphs: the warm-up captures them, the measured run replays them
+    gwarm = warm_up(server, requests)
+    graph = server.graph
+    replays = graph.replays
+    torch.cuda.reset_peak_memory_stats()
+    run = counted_serve(server, requests)
     done, steps, launches = run["done"], run["steps"], run["launches"]
     attn_paths, ssd_paths = run["attention_paths"], run["ssd_paths"]
     # this path's own: the memory held before its model was made is not counted
@@ -1484,10 +1639,17 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     if launches["mamba2_ssd"]:  # bf16 serving: every prefill layer on the tensor cores
         require(ssd_paths == {"fma": 0, "mma": launches["mamba2_ssd"]},
                 f"{cfg.name}: SSD paths {ssd_paths}, expected mma only")
-    graph = server.graph
-    require(graph is not None and graph.replays == steps["decode"] - 1,
-            f"{cfg.name}: the decode step was not captured once and replayed at every later "
-            f"step ({None if graph is None else graph.replays} replays, {steps['decode']} steps)")
+    require(graph is server.graph and graph.replays - replays == steps["decode"]
+            and all(run["replayed"]["decode"]),
+            f"{cfg.name}: the decode graph, captured in the warm-up, did not replay at every "
+            f"step ({graph.replays - replays} replays, {steps['decode']} steps)")
+    distinct = sorted(set(int(n) for n in lengths))
+    require(sorted(server.prefill_graphs) == distinct and all(run["replayed"]["prefill"])
+            and all(g.replays == 2 * int((lengths == n).sum()) - 1
+                    for n, g in server.prefill_graphs.items()),
+            f"{cfg.name}: not one prefill graph a prompt length, captured in the warm-up and "
+            f"replayed at every prefill of the run ({sorted(server.prefill_graphs)}, replayed "
+            f"{run['replayed']['prefill']})")
     moe_paths = None
     if cfg.moe is not None:
         # prompts above 256 tokens take the capacity path; the rest, and every
@@ -1503,15 +1665,9 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
                               "decode_steps_capacity": 0},
                 f"{cfg.name}: MoE paths {moe_paths} for {long_prompts} prompts over 256 tokens")
 
-    # the same requests through the eager loop, on the same weights: the same
-    # tokens and launches, and the first replayed step's logits against the
-    # eager step's (the same kernels on the same shapes: bit for bit expected)
-    eager = Server(cfg, scfg, server.model.state_dict(), device=dev, cuda_graph=False)
-    erun = counted_serve(eager, requests)
-    eager_snap = eager.metrics_snapshot()
-    del eager
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the graph's run against the eager loop's: the same tokens and launches,
+    # and the first replayed step's logits against the eager step's (the
+    # same kernels on the same shapes: bit for bit expected)
     require([c.tokens for c in done] == [c.tokens for c in erun["done"]],
             f"{cfg.name}: the graph's tokens differ from the eager loop's")
     require((erun["launches"], erun["attention_paths"], erun["ssd_paths"], erun["moe_paths"])
@@ -1527,18 +1683,52 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
                       "first_replayed_step_max_abs_diff": first_diff,
                       "first_different_op": None}
     if not graph_vs_eager["first_replayed_step_bit_for_bit"]:
-        graph_vs_eager["first_different_op"] = first_graph_difference(server)
+        graph_vs_eager["first_different_op"] = first_graph_difference(
+            server._graph_step, graph.stream, leaves(server._state))
         print(json.dumps({"phase": phase, "graph_vs_eager": graph_vs_eager}), flush=True)
         require(first_diff <= tol, f"{cfg.name}: the first replayed step's logits differ from "
                 f"the eager step's by {first_diff} (tolerance {tol})")
-    ms = run["step_ms"]["decode"]
+
+    # three replayed prefills, the longest prompt's among them, bit for bit
+    # against an eager Model.prefill; the shared pool against the largest of
+    # the eager prefill's temporaries over the served lengths (a mixture of
+    # experts' are largest below 257 tokens, on its exact path, not at the
+    # longest prompt); the runs' peaks
+    prompt_of = {n: torch.from_numpy(next(r.prompt for r in requests
+                                          if len(r.prompt) == n)[None]).to(dev)
+                 for n in distinct}
+    checks = replayed_prefills(server, [prompt_of[n] for n in
+                                        (distinct[-1], distinct[0], distinct[len(distinct) // 2])])
+    temporaries = prefill_temporaries(server, prompt_of.values())
+    largest = max(temporaries, key=temporaries.get)
+    prefill_graph = prefill_graph_fields(server, gwarm, run, erun, checks)
+    prefill_graph.update(
+        eager_peak_temporaries_mib=temporaries, largest_temporaries_at=largest,
+        temporaries_at_longest_mib=temporaries[distinct[-1]],
+        pool_limit_mib=round(1.5 * temporaries[largest] + 64, 1),
+        warm_up_seconds={"eager": round(ewarm["serve_s"], 3), "graph": round(gwarm["serve_s"], 3)},
+        peak_memory_gb={"eager": round(eager_peak_gb, 3), "graph": round(peak_gb, 3)})
+    if not (all(c["logits_equal"] and c["state_equal"] for c in checks)
+            and prefill_graph["pool_mib"] <= prefill_graph["pool_limit_mib"]
+            and peak_gb <= eager_peak_gb + 2.0):
+        print(json.dumps({"phase": phase, "model": cfg.name, "prefill_graph": prefill_graph}),
+              flush=True)
+    require(all(c["logits_equal"] and c["state_equal"] for c in checks),
+            f"{cfg.name}: a replayed prefill differs from the eager Model.prefill: {checks}")
+    require(prefill_graph["pool_mib"] <= prefill_graph["pool_limit_mib"],
+            f"{cfg.name}: the prefill graphs' pool {prefill_graph['pool_mib']} MiB over "
+            f"{prefill_graph['pool_limit_mib']} MiB")
+    require(peak_gb <= eager_peak_gb + 2.0, f"{cfg.name}: the graph's run peaks at "
+            f"{peak_gb:.3f} GiB, the eager loop's at {eager_peak_gb:.3f} GiB")
+
+    ms, wms = run["step_ms"]["decode"], gwarm["step_ms"]["decode"]
     graph_fields = {
         "capture_s": round(graph.capture_seconds, 3),
-        "pool_mib": round(graph.pool_bytes / 2**20, 1), "replays": graph.replays,
-        "warm_step_ms": round(ms[0], 3), "capture_step_ms": round(ms[1], 3),
+        "pool_mib": round(graph.pool_bytes / 2**20, 1), "replays": graph.replays - replays,
+        "warm_step_ms": round(wms[0], 3), "capture_step_ms": round(wms[1], 3),
         "launches_a_replay": {w.__name__: n for w, (n, _) in
                               zip(serving.KERNEL_WRAPPERS, graph.launches)},
-        "replayed_step_ms_p50": round(float(np.median(ms[2:])), 3)}
+        "replayed_step_ms_p50": round(float(np.median(ms)), 3)}
     eager_ms = erun["step_ms"]["decode"]
     eager_fields = {"serve_seconds": round(erun["serve_s"], 3),
                     "tokens_per_s": eager_snap["tokens_per_s"],
@@ -1549,7 +1739,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
                     "latency_ms_p50": eager_snap["latency_ms"]["p50"],
                     "latency_ms_p99": eager_snap["latency_ms"]["p99"]}
     ctx.setdefault("eager_snapshots", {})[cfg.name] = eager_snap
-    snap = server.metrics_snapshot()
+    snap = run_metrics(run)
     ctx.setdefault("snapshots", {})[cfg.name] = snap
     ctx.setdefault("served", []).append(cfg.name)
 
@@ -1597,7 +1787,7 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
          decode_step_ms_p50=round(float(np.median(ms)), 3),
          decode_step_ms_min=round(float(np.min(ms)), 3),
          decode_step_ms_all=[round(t, 1) for t in ms], graph=graph_fields,
-         eager=eager_fields, graph_vs_eager=graph_vs_eager,
+         prefill_graph=prefill_graph, eager=eager_fields, graph_vs_eager=graph_vs_eager,
          peak_memory_gb=round(peak_gb, 3), tokens_per_s=snap["tokens_per_s"],
          latency_ms_p50=snap["latency_ms"]["p50"], latency_ms_p99=snap["latency_ms"]["p99"],
          compared_with=compare_impl, logits_max_abs=first["logits_max_abs"],
@@ -1742,48 +1932,69 @@ LONG_PROMPT, LONG_MAX_LEN = 8448, 8704
 def long_prompt(ctx, server):
     """One prompt of 8,448 tokens, across the 8,192-token attention chunk,
     through a server of one slot with room for 8,704: a prefill (the
-    capacity path of every MoE layer) and 4 decode steps."""
+    capacity path of every MoE layer) and 4 decode steps, through the eager
+    loop and then through the graphs, each Server after a warm-up of its own
+    (where the graph Server captures the prompt's prefill graph): the same
+    tokens, launches by path and MoE paths, and the replayed prefill equal
+    to an eager ``Model.prefill`` bit for bit."""
     cfg = server.model.cfg
     rng = np.random.default_rng(SERVE["seed"] + 11)
     prompt = rng.integers(0, cfg.vocab, size=LONG_PROMPT).astype(np.int32)
-    one = Server(cfg, ServeConfig(batch_slots=1, max_len=LONG_MAX_LEN, max_new_tokens=5, eos=-1),
-                 server.model.state_dict(), device=DEVICE)
-    step_ms = []
-    prefill = one._prefill
-
-    def timed(*args):
-        t = time.perf_counter()
-        out = prefill(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    one._prefill = timed
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    reset_counts()
-    t0 = time.perf_counter()
-    done = one.serve([Request(uid=0, prompt=prompt)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches, paths = read_counts(), dict(fa.flash_attention.launches_by_path)
+    requests = [Request(uid=0, prompt=prompt)]
+    scfg = ServeConfig(batch_slots=1, max_len=LONG_MAX_LEN, max_new_tokens=5, eos=-1)
+    runs = {}
+    for graph in (False, True):
+        base = torch.cuda.memory_allocated()
+        one = Server(cfg, scfg, server.model.state_dict(), device=DEVICE, cuda_graph=graph)
+        warm = warm_up(one, requests)
+        torch.cuda.reset_peak_memory_stats()
+        run = counted_serve(one, requests)
+        run["peak_memory_gb"] = round((torch.cuda.max_memory_allocated() - base) / 2**30, 3)
+        if graph:
+            tokens = torch.from_numpy(prompt[None]).to(DEVICE)
+            checks = replayed_prefills(one, [tokens])
+            run["prefill_graph"] = prefill_graph_fields(one, warm, run, runs[False], checks)
+            run["prefill_graph"]["eager_peak_temporaries_mib"] = prefill_temporaries(one, [tokens])
+        run["warm_up_seconds"] = round(warm["serve_s"], 3)
+        runs[graph] = run
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    run, erun = runs[True], runs[False]
+    launches, paths = run["launches"], run["attention_paths"]
     ctx["launches"]["serve_llama4:long_prompt"] = launches
     ctx["attention_paths"]["serve_llama4:long_prompt"] = paths
     L = cfg.n_layers
     want = {"flash_attention": L * 5, "mamba2_ssd": 0}
     require(launches == want and paths == {"fma": 0, "mma": L, "split": 4 * L},
             f"long prompt: launches {launches} by path {paths}, expected {want}")
-    require(len(done[0].tokens) == 5 and len(step_ms) == 1, "long prompt: not 5 tokens")
-    del one, prefill, timed
+    done = run["done"]
+    require(len(done[0].tokens) == 5 and run["steps"]["prefill"] == 1,
+            "long prompt: not 5 tokens")
+    require(run["replayed"]["prefill"] == [True] and all(run["replayed"]["decode"]),
+            f"long prompt: the graphs did not replay ({run['replayed']})")
+    require(done[0].tokens == erun["done"][0].tokens
+            and (launches, paths, run["moe_paths"])
+            == (erun["launches"], erun["attention_paths"], erun["moe_paths"]),
+            f"long prompt: the graph's tokens, launches or MoE paths differ from the eager "
+            f"loop's ({run['moe_paths']} against {erun['moe_paths']})")
+    require(all(c["logits_equal"] and c["state_equal"] for c in checks),
+            f"long prompt: the replayed prefill differs from the eager Model.prefill: {checks}")
     return ([("8,448-token prompt", {"tokens": torch.from_numpy(prompt[None]).to(DEVICE)},
               LONG_MAX_LEN)],
             {"long_prompt": {"tokens_in": LONG_PROMPT, "max_len": LONG_MAX_LEN,
                              "attn_chunk": cfg.attn_chunk, "decode_steps": 4,
                              "kernel_launches": launches, "attention_launches_by_path": paths,
-                             "seconds": round(seconds, 3),
-                             "prefill_ms": round(step_ms[0], 3),
-                             "peak_memory_gb": round(
-                                 (torch.cuda.max_memory_allocated() - base) / 2**30, 3),
+                             "moe_paths": run["moe_paths"],
+                             "seconds": round(run["serve_s"], 3),
+                             "eager_seconds": round(erun["serve_s"], 3),
+                             "prefill_ms": round(run["step_ms"]["prefill"][0], 3),
+                             "eager_prefill_ms": round(erun["step_ms"]["prefill"][0], 3),
+                             "warm_up_seconds": {"eager": erun["warm_up_seconds"],
+                                                 "graph": run["warm_up_seconds"]},
+                             "peak_memory_gb": run["peak_memory_gb"],
+                             "eager_peak_memory_gb": erun["peak_memory_gb"],
+                             "prefill_graph": run["prefill_graph"],
                              "tokens": done[0].tokens}})
 
 
@@ -3309,9 +3520,12 @@ def profile_server(ctx, server):
     over decode steps of the model at 8 slots (cache filled by a 256-token
     prefill), eager (``Model.decode_step``) and replayed from the Server's
     CUDA graph (``Server._decode`` on the Server's state, filled by the same
-    prefill), and over the prefill of one 512-token prompt; the busy share is
-    device time over host wall time.  Run by each serving phase while its
-    model is on the card, when the ``profile`` phase is asked for."""
+    prefill), and over the prefill of one 512-token prompt, eager
+    (``Model.prefill``) and replayed from the Server's prefill graph of that
+    length (``Server._prefill``, captured first if the run had no such
+    prompt); the busy share is device time over host wall time.  Run by each
+    serving phase while its model is on the card, when the ``profile`` phase
+    is asked for."""
     model, cfg = server.model, server.model.cfg
     rng = np.random.default_rng(2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(8, 256))).to(model.device)
@@ -3351,12 +3565,24 @@ def profile_server(ctx, server):
     prefill()
     torch.cuda.synchronize()
     pre = _device_profile(prefill, 3)
+
+    def graph_prefill():
+        logits, _ = Server._prefill(server, prompt)         # the graph's replay
+        logits.argmax(-1).cpu()
+
+    graph_prefill()
+    torch.cuda.synchronize()
+    replays = server.prefill_graphs[prompt.shape[1]].replays
+    gpre = _device_profile(graph_prefill, 3)
+    require(server.prefill_graphs[prompt.shape[1]].replays == replays + 6,
+            f"{cfg.name}: the profiled prefills did not replay the graph")
     ctx.setdefault("profiled", []).append(cfg.name)
     emit("profile", model=cfg.name, layers=cfg.n_layers, card=ctx.get("card"), batch=8,
          decode_steps=5, wall_ms_per_step=dec["wall_ms"], device_ms_per_step=dec["device_ms"],
          device_busy_share=dec["device_busy_share"],
          device_kernels_per_step=dec["device_kernels"], top=dec["top"],
-         decode=dec, graph_decode=rep, prefill_512={"prompts": 3, **pre})
+         decode=dec, graph_decode=rep, prefill_512={"prompts": 3, **pre},
+         graph_prefill_512={"prompts": 3, **gpre})
 
 
 def profile_whisper(ctx, model, frames):

@@ -336,10 +336,19 @@ class Model(nn.Module):
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor], max_len: int) -> Tuple[torch.Tensor, State]:
+    def prefill(self, batch: Dict[str, torch.Tensor], max_len: int, check_room: bool = True,
+                out: Optional[State] = None) -> Tuple[torch.Tensor, State]:
         """Processes the prompt; returns (hidden, decode state).  Attention
         runs over the whole cache: unwritten slots are hidden by ``kp <= qp``.
-        ``max_len`` means nothing to the ssm family's state.
+        ``max_len`` means nothing to the ssm family's state.  A prompt longer
+        than ``max_len`` raises ``ValueError`` after one host read; with
+        ``check_room=False`` (a prefill captured in a CUDA graph) the caller
+        has checked its length on the host, and on the card nothing in the
+        dense, moe, vlm, ssm and hybrid prefills reads a value back.  ``out``
+        (a decode state of this model, batch and ``max_len``; not the audio
+        family's) is zeroed, filled in place and returned where the state
+        would otherwise be made anew: a captured prefill then returns only
+        tensors made outside its capture.
 
         The audio family returns the **encoder output** of
         ``batch["frame_embeds"]`` and the state ``{"kv", "enc", "pos"}``: empty
@@ -349,32 +358,41 @@ class Model(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        if out is None:
+            pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        else:
+            for leaf in out.values():
+                for t in leaf if isinstance(leaf, tuple) else (leaf,):
+                    t.zero_()
+            pos = out["pos"].fill_(S)
         if cfg.family == "audio":
             enc = encdec.encode(cfg, self.params, batch["frame_embeds"], self.attn_impl,
                                 self._plan)
             kv = self._kv(cfg.n_layers, B, max_len)
             return enc, {"kv": kv, "enc": enc, "pos": torch.zeros_like(pos)}
+        if cfg.family in ("ssm", "hybrid"):
+            ssm, conv = ((out["ssm"], out["conv"]) if out is not None
+                         else mamba2.init_states(cfg, B, self.device, self._plan))
         if cfg.family == "ssm":
-            h, state = self._ssm_forward(tokens, *mamba2.init_states(cfg, B, self.device,
-                                                                     self._plan))
+            h, state = self._ssm_forward(tokens, ssm, conv)
             return h, {**state, "pos": pos}
         if cfg.family == "hybrid":
-            ssm, conv = mamba2.init_states(cfg, B, self.device, self._plan)
             h, state = hybrid.forward(
                 cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
-                kv_caches=self._hybrid_kv(B, max_len),
+                kv_caches=out["kv"] if out is not None else self._hybrid_kv(B, max_len),
                 cache_positions=self._cache_positions(B, max_len),
-                ssm_states=ssm, conv_states=conv, tp=self._plan,
+                ssm_states=ssm, conv_states=conv, tp=self._plan, check_room=check_room,
             )
             return h, {**state, "pos": pos}
         k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
-        caches = transformer.init_kv_cache(cfg, B, max_len, device=self.device, kv_heads=k1 - k0)
+        caches = (out["kv"] if out is not None else
+                  transformer.init_kv_cache(cfg, B, max_len, device=self.device,
+                                            kv_heads=k1 - k0))
         h, caches = transformer.forward(
             cfg, self.params, tokens, attn_impl=self.attn_impl,
             kv_caches=caches, cache_positions=self._cache_positions(B, max_len),
             patch_embeds=batch.get("patch_embeds"), mrope_positions=batch.get("mrope_positions"),
-            tp=self._plan,
+            tp=self._plan, check_room=check_room,
         )
         return h, {"kv": caches, "pos": pos}
 
@@ -389,9 +407,10 @@ class Model(nn.Module):
         raises ``ValueError`` after one host read of the positions; with
         ``check_room=False`` (a step captured in a CUDA graph, which reads
         nothing back) the caller has checked them on the host
-        (:func:`repro_torch.models.transformer.check_room`), and on the card
-        nothing else in the dense, moe, vlm, ssm and hybrid steps reads a
-        value back.  The audio step checks always."""
+        (:func:`repro_torch.models.transformer.check_room`), a row past the
+        end writes where the reference's clamped insert writes, and on the
+        card nothing else in the dense, moe, vlm, ssm and hybrid steps reads
+        a value back.  The audio step checks always."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = state["pos"] + 1

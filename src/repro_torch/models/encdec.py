@@ -171,7 +171,8 @@ def _self_block(
     v = (x @ lp["wv"]).reshape(B, S, -1, Dh)
     if kv_cache is not None:
         ck, cv = kv_cache
-        rows, cols = cache_index if cache_index is not None else _cache_index(positions)
+        rows, cols = (cache_index if cache_index is not None
+                      else _cache_index(positions, ck.shape[1]))
         ck[rows, cols] = k.to(ck.dtype)
         cv[rows, cols] = v.to(cv.dtype)
         k, v, kv_pos = ck, cv, cache_positions
@@ -255,7 +256,7 @@ def decode_step(
     check_cache_room(positions, S, kv_caches[0].shape[2])
     h = embed(params["embed"], tokens, tp).to(cfg.dtype)
     enc_pos = _positions(B, enc_out.shape[1], h.device)
-    cache_index = _cache_index(positions)
+    cache_index = _cache_index(positions, kv_caches[0].shape[2])
     self_impl = decode_self_impl(attn_impl)
     for i in range(cfg.n_layers):
         lp = layer_params(params["dec"], i)

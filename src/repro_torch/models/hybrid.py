@@ -140,7 +140,8 @@ def _shared_attn_block(
     k = apply_rope(k, positions, cfg.rope_theta, sin_cos=rope)
     if kv_cache is not None:
         ck, cv = kv_cache
-        rows, cols = cache_index if cache_index is not None else _cache_index(positions)
+        rows, cols = (cache_index if cache_index is not None
+                      else _cache_index(positions, ck.shape[1]))
         ck[rows, cols] = k.to(ck.dtype)
         cv[rows, cols] = v.to(cv.dtype)
         k_att, v_att, kv_pos = ck, cv, cache_positions
@@ -179,7 +180,8 @@ def forward(
     reference makes and returns fresh zeroed states there, which training
     drops.  As in the dense path, a KV insert past the cache's end raises
     ``ValueError`` where the reference clamps (unless ``check_room`` is
-    False: the caller has checked on the host).  ``remat`` ``dots`` / ``full``
+    False: the caller has checked on the host, and the insert clamps as the
+    reference's does).  ``remat`` ``dots`` / ``full``
     recompute each group of mamba layers and its shared-block application in
     backward, as the reference checkpoints its group body (the tail layers,
     as there, are not).  ``tp`` is the plan of this rank's share of the
@@ -197,7 +199,7 @@ def forward(
         check_cache_room(positions, S, kv_caches[0].shape[2])
     # the same for every application: computed once
     rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta) if apps else None
-    cache_index = None if kv_caches is None else _cache_index(positions)
+    cache_index = None if kv_caches is None else _cache_index(positions, kv_caches[0].shape[2])
 
     layers = params["mamba"]
 

@@ -451,7 +451,8 @@ def block(
 
     if kv_cache is not None:
         ck, cv = kv_cache
-        rows, cols = cache_index if cache_index is not None else _cache_index(positions)
+        rows, cols = (cache_index if cache_index is not None
+                      else _cache_index(positions, ck.shape[1]))
         ck[rows, cols] = k.to(ck.dtype)
         cv[rows, cols] = v.to(cv.dtype)
         k_att, v_att = ck, cv
@@ -477,12 +478,20 @@ def block(
     return h + y.to(h.dtype)
 
 
-def _cache_index(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cache_index(positions: torch.Tensor,
+                 max_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Index tensors of the cache rows that ``S`` tokens starting at
-    ``positions[:, 0]`` fill: ``(B, 1)`` batch rows and ``(B, S)`` columns."""
+    ``positions[:, 0]`` fill: ``(B, 1)`` batch rows and ``(B, S)`` columns.
+    Given the cache's ``max_len``, a start that would run past its end is
+    clamped into it, as the reference's ``dynamic_update_slice`` clamps it;
+    only an unchecked insert (``check_room=False``) gets here with one, such
+    as a free slot of a ``Server``, whose output no one reads."""
     B, S = positions.shape
     rows = torch.arange(B, device=positions.device)[:, None]
-    cols = positions[:, :1].long() + torch.arange(S, device=positions.device)[None]
+    start = positions[:, :1].long()
+    if max_len is not None:
+        start = start.clamp(0, max_len - S)
+    cols = start + torch.arange(S, device=positions.device)[None]
     return rows, cols
 
 
@@ -535,7 +544,8 @@ def forward(
     calling convention.  The reference's insert clamps a write that would run
     past the cache's end (``dynamic_update_slice``); this raises ``ValueError``
     instead, after one host read of the positions, unless ``check_room`` is
-    False: then the caller has checked them (:func:`check_room`).
+    False: then the caller has checked them (:func:`check_room`), and a start
+    past the end is clamped as the reference clamps it.
 
     ``remat`` ``dots`` / ``full`` recompute each block in backward
     (:func:`repro_torch.models.common.remat_call`).  The embedding is looked
@@ -557,7 +567,7 @@ def forward(
 
     # the same for every layer: computed once
     rope_tables = _rope_tables(cfg, positions, mrope_positions)
-    cache_index = None if kv_caches is None else _cache_index(positions)
+    cache_index = None if kv_caches is None else _cache_index(positions, kv_caches[0].shape[2])
 
     layers = params["layers"]
     for i, kind in enumerate(cfg.layer_kinds()):

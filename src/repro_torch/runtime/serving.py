@@ -7,23 +7,37 @@ Counterpart of ``repro.runtime.serving``.  A small but real serving loop:
   the request queue with a fresh prefill, whose state is written into the
   shared KV cache at that slot;
 * every slot, busy or free, is decoded each step; the first prefill is
-  broadcast into all slots so that free slots hold a valid state;
+  broadcast into all slots so that free slots hold a valid state, and a free
+  slot's insert past the cache's end is clamped into it, as the reference's
+  is (its output is never read);
 * greedy or temperature sampling (the draw is numpy's, on the host, so that
   the same seed picks the same tokens as the reference given equal logits).
 
-The reference jits its decode step into one compiled program.  Here, on a
-CUDA device, the decode step is captured once per ``Server`` as a CUDA graph
-and replayed (``cuda_graph``, on by default; :class:`StepGraph`): the first
-step of the Server's life runs eagerly on the stream the capture uses, the
-second is captured and replayed, and every later step copies the tokens in,
-replays, and samples from the graph's logits on the host.  On the CPU every
-step runs eagerly.  Prefill, which the reference jits once a prompt length,
-runs eagerly.  The slot state is updated **in place** (``_set_slot``, the KV
+The reference jits its decode step into one compiled program, and its
+prefill into one a prompt length.  Here, on a CUDA device, both are captured
+as CUDA graphs and replayed (``cuda_graph``, on by default; :class:`StepGraph`).
+The decode step is captured once per ``Server``: the first step of the
+Server's life runs eagerly on the stream the capture uses, the second is
+captured and replayed, and every later step copies the tokens in, replays,
+and samples from the graph's logits on the host.  Prefill is captured once a
+prompt length: the first prefill of a length runs eagerly on the prefill
+graphs' stream and is then captured, every later one copies the prompt in
+and replays.  The prefill graphs share one stream and one memory pool, and
+each writes its logits and one-sequence state into the same Server-owned
+buffers: what else a prefill allocates is freed when its capture ends, so
+the pool holds about one prefill's temporaries, not one a length.  A capture
+that has to grow the pool found no free block the size of one of its
+temporaries (a mixture of experts' exact path, below 257 tokens, makes ones
+that grow with the prompt): every prefill graph is then captured again,
+longest prompt first, into a new pool, so that the shorter prompts'
+temporaries fit in the longer ones' blocks.  On the CPU every step runs
+eagerly.  The slot state is updated **in place** (``_set_slot``, the KV
 insert of ``transformer.block``), where the reference builds new arrays, and
 it lives as long as the Server: each ``serve`` call broadcasts its first
 prefill into the same buffers, so one capture serves every call.  A graph
-cannot raise, so the Server keeps each slot's position on the host and
-raises the cache-overflow ``ValueError`` before the step, on either path.
+cannot raise, so the Server checks a prompt's length and keeps each busy
+slot's position on the host, and raises the cache-overflow ``ValueError``
+before the step, on either path.
 """
 
 from __future__ import annotations
@@ -83,12 +97,18 @@ class StepGraph:
     capture raises their counters for launches that did not run and a
     replay raises none: :meth:`capture` takes back what it added and
     :meth:`replay` adds what one replay launches, path by path, so that
-    every counter equals the launches that ran.  ``capture_seconds`` and
-    ``pool_bytes`` (the memory the graph's private pool reserved) are set by
-    the capture."""
+    every counter equals the launches that ran.  ``capture_seconds`` (the
+    seconds of every capture of the graph) and ``pool_bytes`` (the memory
+    the last capture added to the graph's pool) are set by the capture.
 
-    def __init__(self, device: torch.device):
+    A graph whose ``share`` is another graph uses that graph's stream and
+    memory pool.  Graphs that share a pool may reuse each other's
+    temporaries, so a replay must not read what another graph of the pool
+    left there: each must return only tensors made outside its capture."""
+
+    def __init__(self, device: torch.device, share: Optional["StepGraph"] = None):
         self.device = device
+        self.share = share
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[Launches] = None    # what one replay launches
@@ -97,7 +117,8 @@ class StepGraph:
         self.pool_bytes: Optional[int] = None
 
     def warm(self, step: Callable[[], Any]) -> Any:
-        self.stream = torch.cuda.Stream(self.device)
+        self.stream = (self.share.stream if self.share is not None
+                       else torch.cuda.Stream(self.device))
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
@@ -119,20 +140,21 @@ class StepGraph:
 
     def _record(self, step: Callable[[], Any]) -> Any:
         # not through torch.cuda.graph, which empties the allocator's cache
-        # first: every prefill after it would allocate its memory anew.  The
-        # graph's private pool takes segments of its own, so the reserved
-        # memory grows by the pool.
+        # first: every eager step after it would allocate its memory anew.
+        # The graph's pool takes segments of its own, so the reserved memory
+        # grows by what the capture added to the pool.
         torch.cuda.synchronize(self.device)
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
+        pool = None if self.share is None else self.share.graph.pool()
         with torch.cuda.stream(self.stream):
-            self.graph.capture_begin()
+            self.graph.capture_begin(pool=pool)
             try:
                 out = step()
             finally:
                 self.graph.capture_end()
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = (self.capture_seconds or 0.0) + time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         return out
 
@@ -176,9 +198,12 @@ class Server:
 
     ``cuda_graph`` (the reference's jit; on by default) captures the decode
     step once as a CUDA graph and replays it (:class:`StepGraph`,
-    ``self.graph`` from the first decode step on); off, every step runs
-    eagerly, as it always does on the CPU.  Nothing is allocated before the first
-    ``serve``."""
+    ``self.graph`` from the first decode step on), and the prefill once a
+    prompt length (``self.prefill_graphs``, by length, kept for the Server's
+    life; captured anew, longest first, when a capture grows their pool:
+    ``self.prefill_recaptures``); off, every step runs eagerly, as it always
+    does on the CPU.
+    Nothing is allocated before the first ``serve``."""
 
     def __init__(
         self, model_cfg: ModelConfig, cfg: ServeConfig, params: Mapping[str, torch.Tensor],
@@ -197,13 +222,20 @@ class Server:
         self.cfg = cfg
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
         self.graph: Optional[StepGraph] = None
-        # every slot's decode state, the graph's input tokens and its logits:
-        # made at first use, then kept for the Server's life
+        self.prefill_graphs: Dict[int, StepGraph] = {}
+        self.prefill_recaptures = 0     # times the prefill graphs were captured anew
+        # every slot's decode state, the graph's input tokens and its logits,
+        # each prefill graph's prompt, and the logits and one-sequence state
+        # that every prefill graph writes: made at first use, then kept for
+        # the Server's life
         self._state: Optional[State] = None
         self._graph_tokens: Optional[torch.Tensor] = None
         self._graph_logits: Optional[torch.Tensor] = None
-        # the host's mirror of state["pos"]
+        self._prefill_tokens: Dict[int, torch.Tensor] = {}
+        self._prefill_out: Optional[Tuple[torch.Tensor, State]] = None
+        # the host's mirror of state["pos"], and which slots hold a request
         self._positions = np.zeros(cfg.batch_slots, np.int64)
+        self._busy = np.zeros(cfg.batch_slots, bool)
         # serve-level metrics: always on (one histogram append per finished sequence)
         self._latency_ms = Histogram()
         self._tokens_done = 0
@@ -224,19 +256,76 @@ class Server:
     # -- steps ---------------------------------------------------------------------
 
     def _prefill(self, tokens: torch.Tensor):
-        h, state = self.model.prefill({"tokens": tokens}, self.cfg.max_len)
+        """The logits and one-sequence state of the prompt ``tokens (1, L)``.
+        A graph cannot raise, so a prompt longer than the cache raises here,
+        on the host, before anything runs."""
+        if self.model.cfg.family != "ssm":      # the families with a KV cache
+            check_room(0, 0, tokens.shape[1], self.cfg.max_len)
+        if self.cuda_graph:
+            return self._graph_prefill(tokens)
+        return self._prefill_step(tokens)
+
+    def _prefill_step(self, tokens: torch.Tensor, out: Optional[State] = None):
+        """The prefill, reading nothing back to the host (the room is
+        checked before it); its state made anew, or written into ``out``."""
+        h, state = self.model.prefill({"tokens": tokens}, self.cfg.max_len, check_room=False,
+                                      out=out)
         return self.model.logits(h[:, -1:])[:, 0], state
+
+    def _graph_prefill(self, tokens: torch.Tensor):
+        """A prompt length's first prefill eagerly on the prefill graphs'
+        stream, then captured; every later one replayed into the Server's
+        one-sequence buffers (read before the next prefill: sampling and the
+        slot's copy)."""
+        length = tokens.shape[1]
+        graph = self.prefill_graphs.get(length)
+        if graph is not None:
+            self._prefill_tokens[length].copy_(tokens)
+            graph.replay()
+            return self._prefill_out
+        static = tokens.clone()
+        graph = StepGraph(self.device, share=next(iter(self.prefill_graphs.values()), None))
+        out = graph.warm(lambda: self._prefill_step(static))
+        if self._prefill_out is None:
+            self._prefill_out = (torch.empty_like(out[0]),
+                                 self._map_state(lambda x, ax: torch.empty_like(x), out[1]))
+        graph.capture(lambda: self._prefill_into(static))
+        self.prefill_graphs[length] = graph
+        self._prefill_tokens[length] = static
+        if graph.pool_bytes and graph.share is not None:
+            self._recapture_prefills()
+        return out
+
+    def _recapture_prefills(self):
+        """Every prefill graph captured again, longest prompt first, into a
+        new pool that the first one owns; the old pool is released first (no
+        replay is in flight: the capture that asks for this synchronised the
+        card)."""
+        graphs = sorted(self.prefill_graphs.items(), reverse=True)
+        for _, graph in graphs:
+            graph.graph = None
+        torch.cuda.empty_cache()
+        self.prefill_recaptures += 1
+        for i, (length, graph) in enumerate(graphs):
+            graph.share = graphs[0][1] if i else None
+            graph.capture(lambda static=self._prefill_tokens[length]: self._prefill_into(static))
+        self.prefill_graphs = dict(graphs)
+
+    def _prefill_into(self, tokens: torch.Tensor):
+        """The step a prefill graph holds: the prefill written into the
+        Server's one-sequence buffers, which it returns, so that all else it
+        allocates is freed when its capture ends."""
+        logits, _ = self._prefill_step(tokens, out=self._prefill_out[1])
+        self._prefill_out[0].copy_(logits)
+        return self._prefill_out
 
     def _decode(self, tokens: torch.Tensor, state: State):
         """One decode step of every slot: ``state`` (the Server's own) is
         updated in place and handed back with the step's logits."""
-        if "kv" in state:   # a graph cannot raise: the host's mirror is checked
-            check_room(int(self._positions.min()), int(self._positions.max()), 1,
-                       state["kv"][0].shape[2])
-        if self.cuda_graph:
-            logits = self._graph_decode(tokens)
-        else:
-            logits = self._step(tokens, check_room=True)
+        busy = self._positions[self._busy]
+        if "kv" in state and busy.size:  # a graph cannot raise: the host's mirror is checked
+            check_room(int(busy.min()), int(busy.max()), 1, state["kv"][0].shape[2])
+        logits = self._graph_decode(tokens) if self.cuda_graph else self._step(tokens)
         self._positions += 1
         return logits, state
 
@@ -255,16 +344,14 @@ class Server:
         return self._graph_logits
 
     def _graph_step(self) -> torch.Tensor:
-        """The step that the graph holds: on the graph's tokens, reading
-        nothing back to the host."""
-        return self._step(self._graph_tokens, check_room=False)
+        """The step that the graph holds: on the graph's tokens."""
+        return self._step(self._graph_tokens)
 
-    def _step(self, tokens: torch.Tensor, check_room: bool) -> torch.Tensor:
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
         """``tokens`` against the Server's state, which is updated in place
-        (``pos`` too); returns the logits.  With ``check_room=False`` nothing
-        is read back to the host: the room is checked on the host's mirror
-        before the step."""
-        h, new_state = self.model.decode_step(tokens, self._state, check_room=check_room)
+        (``pos`` too); returns the logits.  Nothing is read back to the host:
+        the room is checked on the host's mirror before the step."""
+        h, new_state = self.model.decode_step(tokens, self._state, check_room=False)
         self._state["pos"].copy_(new_state["pos"])
         return self.model.logits(h[:, -1:])[:, 0]
 
@@ -317,9 +404,11 @@ class Server:
             nonlocal state
             if pending.empty():
                 slot_req[slot] = None
+                self._busy[slot] = False
                 return
             req = pending.get()
             slot_req[slot] = req
+            self._busy[slot] = True
             slot_tokens[slot] = []
             slot_start[slot] = time.perf_counter()
             logits, st = self._prefill(self._tokens(req.prompt[None, :]))  # (1, L)

@@ -4,7 +4,8 @@ This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies; on one without a card each test
 skips.  Inputs are drawn with numpy from fixed seeds; each kernel is held
 against its plain PyTorch version on the same tensors, the trainer against
-itself, and the Server's captured decode step against its eager loop.
+itself, and the Server's captured decode step and prefills against its eager
+loop.
 ``python3 chip_smoke.py`` runs the full sweep.
 """
 
@@ -188,3 +189,50 @@ def test_server_graph_matches_eager_on_the_card(arch):
                         weights, device="cuda", cuda_graph=graph)
         with pytest.raises(ValueError, match="KV cache of length 8 cannot take 1 token"):
             server.serve([Request(uid=0, prompt=np.arange(1, 7, dtype=np.int32))])
+
+
+def _cloned(state):
+    return {k: tuple(t.clone() for t in v) if isinstance(v, tuple) else v.clone()
+            for k, v in state.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm_3b", "mamba2_370m"])
+def test_server_prefill_graphs_match_eager_on_the_card(arch):
+    """A Server on a reduced bf16 model serves prompts of 3 lengths twice:
+    the first call captures one prefill graph a length, the second replays
+    each, and every replayed prefill's logits and one-sequence state equal
+    the eager Server's bit for bit, as do the tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    cfg = tconfigs.reduced_config(arch)
+    weights = Model(cfg, device="cuda").init(seed=0).state_dict()
+    rng = np.random.default_rng(1)
+    requests = [Request(uid=i, prompt=rng.integers(1, cfg.vocab, size=n).astype(np.int32))
+                for i, n in enumerate((5, 12, 5, 30, 12, 30))]
+    scfg = ServeConfig(batch_slots=2, max_len=64, max_new_tokens=4, eos=-1)
+    runs = {}
+    for graph in (True, False):
+        server = Server(cfg, scfg, weights, device="cuda", cuda_graph=graph)
+        server.serve(requests)
+        seen, prefill = [], server._prefill
+
+        def kept(tokens, prefill=prefill, seen=seen):
+            logits, state = prefill(tokens)
+            seen.append((logits.clone(), _cloned(state)))
+            return logits, state
+
+        server._prefill = kept
+        done = server.serve(requests)
+        torch.cuda.synchronize()
+        runs[graph] = ([c.tokens for c in done], seen)
+        # captured at a length's first prompt, replayed at the next three
+        assert sorted(server.prefill_graphs) == ([5, 12, 30] if graph else [])
+        assert all(g.replays == 3 for g in server.prefill_graphs.values())
+    assert runs[True][0] == runs[False][0]
+    assert len(runs[True][1]) == len(runs[False][1]) == len(requests)
+    for (logits, state), (elogits, estate) in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(logits, elogits)
+        for key, leaf in state.items():
+            for a, b in zip(*((x if isinstance(x, tuple) else (x,)) for x in (leaf, estate[key]))):
+                assert torch.equal(a, b), key
