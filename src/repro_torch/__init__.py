@@ -17,6 +17,14 @@ corpus it tunes before serving (``data.corpus``), each a copy of the
 reference module.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # loaded at first use, so that the framework-free half (``obs``,
+    # ``core``, ``binary``) imports no torch
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,6 +17,12 @@ telemetry.  The design constraints, in order:
    (CLOCK_MONOTONIC — one clock machine-wide), and every record carries its
    ``pid``, so spans captured in pool workers merge into the parent
    timeline (:meth:`Telemetry.export_events` / :meth:`Telemetry.adopt`).
+4. **On the device trace's clock.**  While a torch profiler records, each
+   enabled span also opens a profiler range of its name, so the profiler's
+   timeline holds the span beside the kernels its code launched, with no
+   second clock (:func:`_profiler_range`).  Importing this package loads no
+   torch: the range is looked up through ``sys.modules``, where only a
+   program that imported torch can have started a profiler.
 
 Exporters live in :mod:`repro_torch.obs.export` (JSONL event log, Chrome
 trace-format for ``chrome://tracing`` / Perfetto).
@@ -25,6 +31,7 @@ trace-format for ``chrome://tracing`` / Perfetto).
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -81,10 +88,26 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _profiler_range(name: str):
+    """An open profiler range named ``name`` while a torch profiler records,
+    else None.  The range has the profiler's function scope: it is a host
+    op on the trace, as an ``aten::`` op is, and the profiler makes no
+    device-side copy of it (a ``record_function`` range gets one, which
+    spans its kernels on the device's rows and reads as device work).
+    Torch is never imported here: a process that has not loaded it runs no
+    profiler."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
+
+
 class Span:
     """One live span; records itself on ``__exit__`` (exceptions included)."""
 
-    __slots__ = ("_tel", "name", "attrs", "_t0", "span_id", "parent_id")
+    __slots__ = ("_tel", "name", "attrs", "_t0", "span_id", "parent_id", "_range")
 
     def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, object]):
         self._tel = tel
@@ -103,11 +126,14 @@ class Span:
         stack = tel._stack()
         self.parent_id = stack[-1] if stack else None
         stack.append(self.span_id)
+        self._range = _profiler_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         tel = self._tel
         stack = tel._stack()
         # pop back to this span even if an inner span leaked (belt and

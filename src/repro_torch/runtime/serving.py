@@ -38,6 +38,18 @@ prefill into the same buffers, so one capture serves every call.  A graph
 cannot raise, so the Server checks a prompt's length and keeps each busy
 slot's position on the host, and raises the cache-overflow ``ValueError``
 before the step, on either path.
+
+With telemetry on (:mod:`repro_torch.obs`) the Server records its phases as
+spans on the host, around its calls and graph replays, never inside a
+captured step (a span there would run once, at capture): ``serve`` (a call),
+``serve.prefill`` (a prompt's prefill, first sight and capture included),
+``serve.decode`` (a decode step, its room check included), ``serve.sample``
+(sampling and the copy to the host), ``serve.slot_copy`` (a prefill's state
+written into one slot, or broadcast into all) and ``graph.capture`` (a
+:class:`StepGraph` capture).  Its counters: ``serve.prefill_tokens`` (prompt
+tokens prefilled), ``serve.decode_rows`` (the rows the decode steps
+computed) and ``serve.busy_rows`` (those of them that held a request).
+While a torch profiler records, each span is also a range on its trace.
 """
 
 from __future__ import annotations
@@ -127,10 +139,11 @@ class StepGraph:
         return out
 
     def capture(self, step: Callable[[], Any]) -> Any:
-        before = launch_counts()
-        out = self._record(step)
-        self.launches = launches_since(before)
-        add_launches(self.launches, -1)
+        with obs.span("graph.capture"):
+            before = launch_counts()
+            out = self._record(step)
+            self.launches = launches_since(before)
+            add_launches(self.launches, -1)
         return out
 
     def replay(self) -> None:
@@ -261,9 +274,11 @@ class Server:
         on the host, before anything runs."""
         if self.model.cfg.family != "ssm":      # the families with a KV cache
             check_room(0, 0, tokens.shape[1], self.cfg.max_len)
-        if self.cuda_graph:
-            return self._graph_prefill(tokens)
-        return self._prefill_step(tokens)
+        with obs.span("serve.prefill"):
+            out = self._graph_prefill(tokens) if self.cuda_graph else self._prefill_step(tokens)
+        if obs.enabled():
+            obs.metrics().counter("serve.prefill_tokens").inc(tokens.shape[1])
+        return out
 
     def _prefill_step(self, tokens: torch.Tensor, out: Optional[State] = None):
         """The prefill, reading nothing back to the host (the room is
@@ -322,11 +337,16 @@ class Server:
     def _decode(self, tokens: torch.Tensor, state: State):
         """One decode step of every slot: ``state`` (the Server's own) is
         updated in place and handed back with the step's logits."""
-        busy = self._positions[self._busy]
-        if "kv" in state and busy.size:  # a graph cannot raise: the host's mirror is checked
-            check_room(int(busy.min()), int(busy.max()), 1, state["kv"][0].shape[2])
-        logits = self._graph_decode(tokens) if self.cuda_graph else self._step(tokens)
+        with obs.span("serve.decode"):
+            busy = self._positions[self._busy]
+            if "kv" in state and busy.size:  # a graph cannot raise: the host's mirror is checked
+                check_room(int(busy.min()), int(busy.max()), 1, state["kv"][0].shape[2])
+            logits = self._graph_decode(tokens) if self.cuda_graph else self._step(tokens)
         self._positions += 1
+        if obs.enabled():
+            reg = obs.metrics()
+            reg.counter("serve.decode_rows").inc(tokens.shape[0])
+            reg.counter("serve.busy_rows").inc(busy.size)
         return logits, state
 
     def _graph_decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -356,9 +376,10 @@ class Server:
         return self.model.logits(h[:, -1:])[:, 0]
 
     def _sample(self, logits: torch.Tensor, rng: np.random.Generator) -> np.ndarray:
-        if self.cfg.temperature <= 0.0:
-            return logits.argmax(dim=-1).cpu().numpy()
-        probs = torch.softmax(logits / self.cfg.temperature, dim=-1).float().cpu().numpy()
+        with obs.span("serve.sample"):
+            if self.cfg.temperature <= 0.0:
+                return logits.argmax(dim=-1).cpu().numpy()
+            probs = torch.softmax(logits / self.cfg.temperature, dim=-1).float().cpu().numpy()
         return np.array(
             [rng.choice(probs.shape[-1], p=probs[i]) for i in range(probs.shape[0])]
         )
@@ -373,15 +394,10 @@ class Server:
         with obs.span("serve", requests=len(requests)) as sp:
             done = self._serve(requests)
             sp.set(completions=len(done))
-        seconds = time.perf_counter() - t_call
-        self._busy_seconds += seconds
+        self._busy_seconds += time.perf_counter() - t_call
         for c in done:
             self._latency_ms.observe(c.latency_s * 1e3)
             self._tokens_done += len(c.tokens)
-        if obs.enabled():
-            reg = obs.metrics()
-            reg.counter("serve.completions").inc(len(done))
-            reg.histogram("serve.batch_s").observe(seconds)
         return done
 
     def _serve(self, requests: List[Request]) -> List[Completion]:
@@ -413,14 +429,15 @@ class Server:
             slot_start[slot] = time.perf_counter()
             logits, st = self._prefill(self._tokens(req.prompt[None, :]))  # (1, L)
             tok = int(self._sample(logits, rng)[0])
-            if state is None:
-                # this call's first fill: broadcast into every slot
-                state = self._fill_all(st, len(req.prompt))
-            else:
-                self._map_state2(
-                    lambda full, one, ax: self._set_slot(full, one, slot, ax), state, st
-                )
-                self._positions[slot] = len(req.prompt)
+            with obs.span("serve.slot_copy"):
+                if state is None:
+                    # this call's first fill: broadcast into every slot
+                    state = self._fill_all(st, len(req.prompt))
+                else:
+                    self._map_state2(
+                        lambda full, one, ax: self._set_slot(full, one, slot, ax), state, st
+                    )
+                    self._positions[slot] = len(req.prompt)
             slot_tokens[slot].append(tok)
             next_tokens[slot] = tok
 

@@ -27,7 +27,13 @@ Counterpart of ``repro.runtime.trainer``:
   checkpoint and replaying the deterministic data stream;
 * **stragglers** — per-step wall time through an EWMA + z-score detector; a
   slow step raises a counter and calls the callback;
-* **preemption** — SIGTERM makes ``run()`` save synchronously and stop.
+* **preemption** — SIGTERM makes ``run()`` save synchronously and stop;
+* **telemetry** — with :mod:`repro_torch.obs` on, the step records the spans
+  ``train.forward`` (``Model.train_loss``), ``train.backward``
+  (``torch.autograd.grad``, recomputation included) and ``train.optimizer``
+  (the mesh's clipping norm and ``adamw_update``), one forward and one
+  backward a microbatch; while a torch profiler records, each is a range on
+  its trace.
 
 A restart replays bit for bit only if every operation of the step is
 deterministic: the embedding is looked up by ``F.embedding`` and the loss
@@ -53,6 +59,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..checkpoint import CheckpointManager
 from ..data import DataConfig, SyntheticLM
 from ..device import DeviceLike, resolve_device
@@ -75,18 +82,22 @@ def loss_and_grads(model: Model, params: Params, batch: Dict[str, torch.Tensor],
                    mesh=None, shardings=None) -> Tuple[torch.Tensor, Params]:
     """The loss of ``batch`` and its gradients (local blocks on a mesh)."""
     if mesh is None:
-        loss = model.train_loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with obs.span("train.forward"):
+            loss = model.train_loss(batch)
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
     plan = shd.model_axis(split_products(model.cfg), shardings)
-    with model.bind(shd.gathered_tree(params, shardings, param_axes(model.cfg), plan), plan):
+    with obs.span("train.forward"), model.bind(
+            shd.gathered_tree(params, shardings, param_axes(model.cfg), plan), plan):
         loss = model.train_loss(batch)
     # the global mean: each rank's mean weighted by its share of the counted
     # targets (exactly 1.0 where one rank holds the batch)
     count = (batch["targets"] >= 0).sum()
     weight = count.float() / shd.all_reduce_data(count, mesh).clamp_min(1).float()
     loss = loss * weight
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with obs.span("train.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()))
     return shd.all_reduce_data(loss.detach(), mesh), {k: _local(g) for k, g in zip(params, grads)}
 
 
@@ -130,13 +141,14 @@ def train_step(model: Model, opt_cfg: AdamWConfig, params: Params, opt_state: Op
         loss = torch.stack(losses).mean()
     else:
         loss, grads = loss_and_grads(model, params, batch, mesh, shardings)
-    norm = None if mesh is None else _mesh_norm(grads, shardings, mesh)
     local_state = {"mu": {k: _local(m) for k, m in opt_state["mu"].items()},
                    "nu": {k: _local(m) for k, m in opt_state["nu"].items()},
                    "count": opt_state["count"]}
     with torch.no_grad():
         local_params = {k: _local(p) for k, p in params.items()}
-    _, new, metrics = adamw_update(opt_cfg, local_params, grads, local_state, grad_norm=norm)
+    with obs.span("train.optimizer"):
+        norm = None if mesh is None else _mesh_norm(grads, shardings, mesh)
+        _, new, metrics = adamw_update(opt_cfg, local_params, grads, local_state, grad_norm=norm)
     metrics["loss"] = loss
     return {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": new["count"]}, metrics
 

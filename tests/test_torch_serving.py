@@ -205,7 +205,10 @@ def test_metrics_snapshot_and_telemetry():
     assert snap["tokens_per_s"] > 0 and snap["latency_ms"]["p99"] >= snap["latency_ms"]["p50"] > 0
     spans = [e for e in obs.get_telemetry().events if e.name == "serve"]
     assert len(spans) == 1 and spans[0].attrs == {"requests": 5, "completions": 5}
-    assert obs.metrics().snapshot()["serve.completions"] == 5
+    # the Server's counters: 30 prompt tokens; 9 decode steps of 2 rows (3 a
+    # request, the fifth alone), 15 of them busy (20 tokens, 5 from prefills)
+    assert obs.metrics().snapshot() == {"serve.prefill_tokens": 30, "serve.decode_rows": 18,
+                                        "serve.busy_rows": 15}
     assert '"serve"' in obs.to_jsonl() and obs.chrome_trace()["traceEvents"][0]["name"] == "serve"
     obs.reset()
 

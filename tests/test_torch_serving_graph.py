@@ -30,6 +30,7 @@ cover the families the Server serves; weights and requests are those of
 """
 
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro.runtime.serving import Request as JRequest
+from repro_torch import obs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import ops
@@ -424,6 +426,33 @@ def test_a_pool_that_grows_is_captured_anew_longest_first(monkeypatch):
     assert graphs[9].share is None and graphs[6].share is graphs[4].share is graphs[9]
     assert [graphs[n].replays for n in (4, 6, 9)] == [5, 3, 1]
     assert GrowingGraph.prefill_captures == 6
+
+
+def test_captures_are_spans_inside_the_step_that_asked(monkeypatch):
+    """With telemetry on, every capture and recapture is one
+    ``graph.capture`` span inside the ``serve.prefill`` or ``serve.decode``
+    that made it, and every decode step, graph or eager, one
+    ``serve.decode``."""
+    monkeypatch.setattr(GrowingGraph, "grows", (3,))
+    monkeypatch.setattr(GrowingGraph, "prefill_captures", 0)
+    server, _ = _servers()
+    _graphed(server, monkeypatch, graph=GrowingGraph)
+    obs.reset()
+    obs.enable()
+    try:
+        server.serve(_prompts(Request))
+    finally:
+        obs.disable()
+    spans = list(obs.get_telemetry().events)
+    obs.reset()
+    by_id = {r.span_id: r for r in spans}
+    captures = [r for r in spans if r.name == "graph.capture"]
+    graphs = [server.graph, *server.prefill_graphs.values()]
+    assert len(captures) == sum(g.captures for g in graphs) == 1 + 2 * 3
+    assert Counter(by_id[r.parent_id].name for r in captures) == {"serve.prefill": 6,
+                                                                   "serve.decode": 1}
+    decodes = sum(1 for r in spans if r.name == "serve.decode")
+    assert decodes == server.graph.replays + 1     # the eager first step, then a replay each
 
 
 class CountingEagerGraph(EagerGraph):
