@@ -31,7 +31,12 @@ phase prints one JSON line:
                          heads of every served model, and at the heads a rank of a 2- or
                          4-wide model axis computes where those differ (``local_heads``;
                          whisper's also at its 1,500-frame encoder step; tolerance 2e-5 in
-                         fp32, 2e-2 in bf16, absolute + relative)
+                         fp32, 2e-2 in bf16, absolute + relative); the training attention's
+                         forward and backward kernels against their plain version (bf16:
+                         the whole tensor's norm gap under ``TRAIN_ATTN_GAP`` and each query
+                         row's and key's under ``TRAIN_ATTN_ROW_GAP``, both of which the
+                         plain version with P and dS rounded to float8 must exceed; backward
+                         bit for bit twice)
 5. ``ssd_vs_plain``      the SSD kernel against its plain version and the sequential
                          oracle on both paths (fp32: fma, bf16: mma): the reference's shape
                          sweep, ragged lengths, an initial state, strided views, p-splits,
@@ -86,14 +91,15 @@ phase prints one JSON line:
                          greedy ``decode_step``s (self- and cross-attention, both on the
                          split path); launches, logits against ``attn_impl="chunked"``, the
                          float32 check at 2 layers
-14. ``train``            ``Trainer`` on the card, no kernel (the kernels are forward only):
-                         (a) stablelm_3b at full width and depth, 8 steps at 8 x 512 tokens,
-                         the loss must fall; (b) at full width and 2 layers, a run with a
-                         failure injected at step 5 restarts from its step-4 checkpoint and
-                         must end bit for bit where an uninterrupted run ends, and the same
-                         for qwen2_moe_a2_7b at 2 layers (4,096 tokens a batch: the MoE
-                         capacity path); (c) float32 gradients through ``"chunked"``
-                         against ``"xla"`` within 1e-4
+14. ``train``            ``Trainer`` on the card, attention on the training kernels
+                         (two forward and one backward launch a layer a step), the
+                         forward-only kernels unlaunched: (a) stablelm_3b at full width and
+                         depth, 8 steps at 8 x 512 tokens, the loss must fall; (b) at full
+                         width and 2 layers, a run with a failure injected at step 5
+                         restarts from its step-4 checkpoint and must end bit for bit where
+                         an uninterrupted run ends, and the same for qwen2_moe_a2_7b at 2
+                         layers (4,096 tokens a batch: the MoE capacity path); (c) float32
+                         gradients through ``"chunked"`` against ``"xla"`` within 1e-4
 15. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
                          ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess at
                          full width and depth beside the train phase's un-meshed run; float32
@@ -127,14 +133,17 @@ phase prints one JSON line:
                          kernel, counted in that process); one at a time, one line an
                          example run
 19. ``kernels``          one line ``{"kernels": [...]}``: for each kernel its launches on
-                         the serving paths, error against the plain version, time (``ms``:
+                         the serving paths (the training attention's: in the ``train``
+                         phase), error against the plain version, time (``ms``:
                          eager calls between CUDA events, the host's issue time included),
                          device time (``device_ms``: CUDA graphs), plain time, library time
                          (``scaled_dot_product_attention`` under each backend that takes
                          the mask, the fastest kept; a yardstick the port never calls; none
                          exists for the SSD scan) and the card's bound (attention: also
                          ``bound_visible_ms``, the work the positions leave visible), at
-                         the shapes the main paths use
+                         the shapes the main paths use; the training attention's forward
+                         and backward at train_4k's shape (SDPA's flash forward + backward
+                         as its library time)
 20. ``serve_throughput`` per served model: tokens/s and completion latencies, the graph's
                          and the eager loop's, with the card
 
@@ -184,6 +193,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
+from repro_torch.kernels import train_attention as ta  # noqa: E402
 from repro_torch.models import Model, transformer  # noqa: E402
 from repro_torch.obs import Histogram  # noqa: E402
 from repro_torch.runtime import Request, ServeConfig, Server, serving  # noqa: E402
@@ -205,10 +215,15 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 KERNEL_REPLACES = "src/repro/kernels/flash_attention.py:86"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
 SSD_REPLACES = "src/repro/kernels/mamba2_ssd.py:37"
+TRAIN_ATTN_SOURCE = "src/repro_torch/kernels/csrc/train_attention.cu"
 #: where every phase puts its tensors (a rehearsal on the CPU may point it there)
 DEVICE = torch.device("cuda")
-#: each kernel's wrapper, which carries its launch count
-WRAPPERS = {"flash_attention": fa.flash_attention, "mamba2_ssd": ssd.mamba2_ssd}
+#: each kernel's wrapper, which carries its launch count (the training attention's
+#: by kernel)
+WRAPPERS = {"flash_attention": fa.flash_attention, "mamba2_ssd": ssd.mamba2_ssd,
+            "train_attention": ta.train_attention}
+#: the kernels that only a forward pass launches: a training path launches none of them
+FORWARD_ONLY = ("flash_attention", "mamba2_ssd")
 
 
 class SmokeFailure(RuntimeError):
@@ -222,15 +237,22 @@ def require(cond, message: str) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0: a serving path starts here."""
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    """Every kernel's launch count to 0: a serving or training path starts here."""
+    fa.flash_attention.launches = ssd.mamba2_ssd.launches = 0
     fa.flash_attention.launches_by_path = {p: 0 for p in fa.PATHS}
     ssd.mamba2_ssd.launches_by_path = {p: 0 for p in ssd.PATHS}
+    ta.train_attention.launches_by_kernel = {n: 0 for n in ta.KERNELS}
 
 
 def read_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    """Each kernel's launches since ``reset_counts`` (the training attention's
+    four kernels summed)."""
+    return {"flash_attention": fa.flash_attention.launches, "mamba2_ssd": ssd.mamba2_ssd.launches,
+            "train_attention": sum(ta.train_attention.launches_by_kernel.values())}
+
+
+def forward_only(launches: dict) -> dict:
+    return {name: launches[name] for name in FORWARD_ONLY}
 
 
 def emit(phase: str, **fields) -> None:
@@ -360,11 +382,13 @@ _MANGLED_MMA = re.compile(r"flash_attention_mma_kernelILi(\d+)ELi(\d+)ELb([01])E
 _MANGLED_SPLIT = re.compile(r"flash_attention_split_kernelILi(\d+)ELi(\d+)E")
 _MANGLED_SSD = re.compile(r"mamba2_ssd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 _MANGLED_SSD_MMA = re.compile(r"mamba2_ssd_mma_kernelILi(\d+)ELi(\d+)E")
+_MANGLED_TRAIN = re.compile(r"train_attention_(fwd|bwd_dot|bwd_dkdv|bwd_dq)_kernel(?:ILi(\d+)E)?")
 
 
 def readable(mangled: str) -> str:
     """The attention kernel's three paths as path, dtype, head-width class and
-    tile; the SSD kernel's two paths as path, dtype, state width and p_block."""
+    tile; the SSD kernel's two paths as path, dtype, state width and p_block;
+    the training attention's four kernels as kernel and head-width class."""
     m = _MANGLED.search(mangled)
     if m:
         t, nj, rm, nkj = m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
@@ -385,6 +409,10 @@ def readable(mangled: str) -> str:
     m = _MANGLED_SSD_MMA.search(mangled)
     if m:
         return f"mamba2_ssd<mma, bf16, N={m.group(1)}, p_block={m.group(2)}>"
+    m = _MANGLED_TRAIN.search(mangled)
+    if m:
+        width = f", Dh<={m.group(2)}" if m.group(2) else ""
+        return f"train_attention<{m.group(1)}, bf16{width}>"
     return mangled
 
 
@@ -423,6 +451,14 @@ def phase_build(ctx):
             entry["path"], entry["dh_class"] = "split", dhc
             entry["stages"] = fa.split_stages(dhc)
             entry["dynamic_smem_bytes"] = fa.split_smem_bytes(dhc, rc, 1024)
+        train_k = _MANGLED_TRAIN.search(r["kernel"])
+        if train_k:
+            # at train_4k's shape (4,096 tokens, one query head a kv head)
+            entry["train_kernel"] = train_k.group(1)
+            if train_k.group(2):
+                dhc = int(train_k.group(2))
+                entry["train_dh_class"] = dhc
+                entry["dynamic_smem_bytes"] = ta.smem_bytes(train_k.group(1), dhc, 4096, 4096)
         res.append(entry)
     require(res, "ptxas reported no kernel")
     ctx["resources"] = {r["kernel"]: r for r in res}
@@ -450,11 +486,20 @@ def phase_build(ctx):
             "registers": {r["kernel"]: r["registers"] for r in mine},
             "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in mine),
         }
+    train = [r for r in res if r.get("train_kernel")]
+    train_attention = {
+        "instantiations": len(train),
+        "resources": {r["kernel"]: {"registers": r["registers"],
+                                    "spill_bytes": r["spill_store_bytes"] + r["spill_load_bytes"],
+                                    "dynamic_smem_bytes": r.get("dynamic_smem_bytes", 0)}
+                      for r in train},
+        "spill_bytes": sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in train)}
     emit("build", seconds=round(info.seconds or time.perf_counter() - t0, 3), reused=info.reused,
          so=os.path.relpath(info.path), sources=[p.name for p in _build.sources()],
          kernels=len(res), max_registers=max(r["registers"] for r in res),
          spill_bytes=sum(r["spill_store_bytes"] + r["spill_load_bytes"] for r in res),
-         by_kernel=by_kernel, attention_by_path=by_path, ssd_by_path=ssd_by_path, resources=res)
+         by_kernel=by_kernel, attention_by_path=by_path, ssd_by_path=ssd_by_path,
+         train_attention=train_attention, resources=res)
     # the mma and split paths keep their state in registers at every head width
     # class (64: whisper, 80: stablelm / zamba2, 128, 256: gemma3)
     spilled = [r["kernel"] for r in res if r.get("dh_class") in (64, 80, 128, 256)
@@ -464,6 +509,12 @@ def phase_build(ctx):
     spilled = [r["kernel"] for r in res if r.get("ssd_path") == "mma" and r["state"] in (64, 128)
                and r["spill_store_bytes"] + r["spill_load_bytes"] > 0]
     require(not spilled, f"SSD mma spills at N = 64 / 128: {spilled}")
+    # the training kernels keep dK / dV, dQ and m / l / acc in registers: forward,
+    # dkdv and dq at each head-width class (64, 80, 128) and the one dot kernel
+    require(train_attention["instantiations"] == 10,
+            f"the build's training-attention instantiations: {train_attention['instantiations']}")
+    require(not train_attention["spill_bytes"],
+            f"training attention spills: {[r['kernel'] for r in train if r['spill_store_bytes']]}")
     # the chooser's occupancy counts registers from its table: never fewer than ptxas's
     over = [r["kernel"] for r in res if r.get("ssd_path")
             and r["registers"] > ssd.REGISTERS[(r["ssd_path"], r["state"], r["p_block"])]]
@@ -490,6 +541,16 @@ def phase_build(ctx):
             for rc in fa.SPLIT_ROWS:
                 require(smem_c(2, dh, rc, 32, skv) == fa.split_smem_bytes(dh, rc, skv),
                         f"split shared-memory formulas differ at Dh={dh}, rows={rc}")
+    lib.repro_train_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.repro_train_attention_smem_bytes.restype = ctypes.c_longlong
+    for code, name in enumerate(("fwd", "bwd_dkdv", "bwd_dq")):
+        for dh in (16, 80, 96, 128):
+            for seq in (1, 1000, 4097):
+                for groups in (1, 4):
+                    require(lib.repro_train_attention_smem_bytes(code, dh, seq, seq, groups)
+                            == ta.smem_bytes(name, dh, seq, seq, groups),
+                            f"training attention {name} shared-memory formulas differ at "
+                            f"Dh={dh}, S={seq}, groups={groups}")
     lib.repro_mamba2_ssd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.repro_mamba2_ssd_smem_bytes.restype = ctypes.c_longlong
     for code, path in enumerate(ssd.PATHS):
@@ -733,6 +794,198 @@ def local_head_times(local):
     return rows
 
 
+#: training attention's checked cases, (B, S, Hq, Hkv, Dh, window, chunk, rows that see
+#: no key, pad_keys): train_4k's shape, grouped heads over a ragged length, a window, a
+#: chunk mask, a head width between the classes, and rows that see no key (the
+#: chunked loop's mean over its keys padded to 1,024)
+TRAIN_ATTN_CASES = {
+    "train_4k": (1, 4096, 32, 32, 80, None, None, (), None),
+    "GQA 4:1, Dh 128, 300 tokens": (2, 300, 8, 2, 128, None, None, (), None),
+    "window 77, Dh 64": (2, 300, 4, 2, 64, 77, None, (), None),
+    "chunk 64, Dh 80": (1, 333, 4, 4, 80, None, 64, (), None),
+    "Dh 96, GQA 2": (1, 150, 4, 2, 96, None, None, (), None),
+    "rows that see no key": (1, 130, 2, 2, 80, None, None, (5, 70), 1024),
+}
+
+
+#: the training kernels' limits on ``row_gap`` against the plain version, in each of
+#: out, dq, dk and dv at every case of ``TRAIN_ATTN_CASES``: the whole tensor's gap, and
+#: the worst query row's or key's, which finds a fault confined to a few tiles (the
+#: last keys' dk and dv are a thousandth of the whole tensor's norm).  The plain
+#: version with P and dS rounded to float8 has to exceed both in each of the four
+TRAIN_ATTN_GAP = 0.005
+TRAIN_ATTN_ROW_GAP = 0.017
+
+
+def row_gap(got, want):
+    """``(worst, whole)``: the worst row's ``|got - want| / |want|`` over the
+    last dimension (a query row's or a key's head vector), each norm taken as
+    at least a tenth of the rows' RMS norm (a row that sees few keys has a
+    small dq that the bf16 rounding of O moves), and the whole tensor's.  NaN
+    where ``got`` is not finite."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    floor = 0.1 * float(ref.square().mean().sqrt())
+    worst = float((diff / ref.clamp_min(floor)).max())
+    return worst, float(diff.norm() / ref.norm())
+
+
+def fp8_rows(x):
+    """``x`` rounded to float8 e4m3 with one scale a row (the row's largest
+    magnitude at 448): the control, one precision below bfloat16."""
+    scale = 448.0 / x.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return (x * scale).to(torch.float8_e4m3fn).float() / scale
+
+
+def train_attention_checks(failures, results):
+    """The forward and backward kernels against the plain version, each on its
+    own forward's output and LSE: in each of out, dq, dk and dv the whole
+    tensor's ``row_gap`` under ``TRAIN_ATTN_GAP`` and the worst row's under
+    ``TRAIN_ATTN_ROW_GAP``, both of which the plain version with P and dS
+    rounded to float8 (``fp8_rows``) exceeds; LSE within 1e-4, its +inf marks
+    the same; two backward runs bit for bit."""
+    from unittest import mock
+
+    bf16 = torch.bfloat16
+    for name, (B, S, Hq, Hkv, Dh, window, chunk, empty, pad) in TRAIN_ATTN_CASES.items():
+        qpos = np.arange(S)[None].repeat(B, 0)
+        qpos[:, list(empty)] = -3
+        q, k, v, qp, kp = make_case(B, S, S, Hq, Hkv, Dh, bf16, q_positions=qpos)
+        do = make_case(B, S, S, Hq, Hkv, Dh, bf16, seed=1)[0]
+        mask = dict(window=window, chunk=chunk, pad_keys=pad)
+        before = dict(ta.train_attention.launches_by_kernel)
+        out, lse = ta.train_attention_forward(q, k, v, qp, kp, **mask)
+        grads = ta.train_attention_backward(q, k, v, out, lse, do, qp, kp, **mask)
+        again = ta.train_attention_backward(q, k, v, out, lse, do, qp, kp, **mask)
+        torch.cuda.synchronize()
+        launched = {n: ta.train_attention.launches_by_kernel[n] - before[n] for n in ta.KERNELS}
+        p_out, p_lse = ta.train_attention_plain_forward(q, k, v, qp, kp, **mask)
+        want = (p_out, *ta.train_attention_plain_backward(q, k, v, p_out, p_lse, do, qp, kp,
+                                                          **mask))
+        gaps = {key: row_gap(got, w)
+                for key, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), want)}
+        with mock.patch.object(ta, "_rounder", lambda dtype: fp8_rows):
+            ctl = ta.train_attention_plain_forward(q, k, v, qp, kp, **mask)
+            ctl = (ctl[0], *ta.train_attention_plain_backward(q, k, v, *ctl, do, qp, kp, **mask))
+        control = {key: row_gap(c, w) for key, c, w in zip(gaps, ctl, want)}
+        del ctl
+        seen = torch.isfinite(p_lse)
+        lse_err = float((lse[seen] - p_lse[seen]).abs().max()) if bool(seen.any()) else 0.0
+        exact = all(torch.equal(a, b) for a, b in zip(grads, again))
+        worst = max(g[1] for g in gaps.values())
+        worst_row = max(g[0] for g in gaps.values())
+        control_fails = all(c[1] > TRAIN_ATTN_GAP and c[0] > TRAIN_ATTN_ROW_GAP
+                            for c in control.values())
+        ok = (worst <= TRAIN_ATTN_GAP and worst_row <= TRAIN_ATTN_ROW_GAP and control_fails
+              and lse_err < 1e-4
+              and torch.equal(torch.isinf(lse), torch.isinf(p_lse)) and exact
+              and launched == {"fwd": 1, "bwd_dot": 2, "bwd_dkdv": 2, "bwd_dq": 2})
+        results.append({"case": f"train_attention {name}", "dtype": "bfloat16",
+                        "path": "train_attention", "err_vs_plain": worst,
+                        "worst_row_gap": worst_row,
+                        "row_gap": {k: g[0] for k, g in gaps.items()},
+                        "whole_gap": {k: g[1] for k, g in gaps.items()},
+                        "control_row_gap": {k: c[0] for k, c in control.items()},
+                        "control_whole_gap": {k: c[1] for k, c in control.items()},
+                        "limits": {"whole": TRAIN_ATTN_GAP, "row": TRAIN_ATTN_ROW_GAP},
+                        "control_fails": control_fails,
+                        "lse_err": lse_err, "backward_bit_exact": exact, "launched": launched,
+                        "ok": ok})
+        if not ok:
+            failures.append(f"train_attention {name}")
+        del want, p_out
+
+
+def train_attention_entry(ctx):
+    """The training kernels' entry of the ``kernels`` line: their launches in
+    the ``train`` phase, and their times at train_4k's shape (1, 4,096, 32
+    heads of 80, causal): forward and backward device times from CUDA graphs
+    and eager times, in turns with the plain version; the bound counts the
+    visible pairs only (forward two products, backward four: dV, dP, dQ, dK)
+    at the bf16 tensor-core rate, or the bytes read and written once;
+    ``library_ms`` is SDPA's flash forward and backward, timed as a yardstick
+    (the port never calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, S, H, Dh = 1, 4096, 32, 80
+    bf16 = torch.bfloat16
+    q, k, v, qp, kp = make_case(B, S, S, H, H, Dh, bf16, q_positions=np.arange(S)[None])
+    do = make_case(B, S, S, H, H, Dh, bf16, seed=1)[0]
+    out, lse = ta.train_attention_forward(q, k, v, qp, kp)
+    p_out, p_lse = ta.train_attention_plain_forward(q, k, v, qp, kp)
+
+    def fwd():
+        return ta.train_attention_forward(q, k, v, qp, kp)
+
+    def bwd():
+        return ta.train_attention_backward(q, k, v, out, lse, do, qp, kp)
+
+    def plain_fwd():
+        return ta.train_attention_plain_forward(q, k, v, qp, kp)
+
+    def plain_bwd():
+        return ta.train_attention_plain_backward(q, k, v, p_out, p_lse, do, qp, kp)
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def library_fwd():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]), torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def library():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    gap_lib = row_gap(out, library_fwd().transpose(1, 2))[1]
+    # in turns: plain, kernel, library, kernel, plain (eager, CUDA events); then
+    # the kernels' device times from CUDA graphs
+    t = {"plain_fwd": [time_ms(plain_fwd, 1, 3)], "plain_bwd": [time_ms(plain_bwd, 1, 3)],
+         "fwd": [time_ms(fwd)], "bwd": [time_ms(bwd)]}
+    lib_ms, lib_fwd_ms = time_ms(library), time_ms(library_fwd)
+    t["fwd"].append(time_ms(fwd))
+    t["bwd"].append(time_ms(bwd))
+    t["plain_fwd"].append(time_ms(plain_fwd, 1, 3))
+    t["plain_bwd"].append(time_ms(plain_bwd, 1, 3))
+    d_fwd = [graph_ms(fwd, iters=10) for _ in range(2)]
+    d_bwd = [graph_ms(bwd, iters=10) for _ in range(2)]
+    pairs = S * (S + 1) // 2
+    n = B * S * H * Dh
+    cost = {"forward": (4 * H * Dh * pairs, 2 * 4 * n + 4 * B * H * S + 8 * B * S),
+            "backward": (8 * H * Dh * pairs, 2 * 8 * n + 4 * B * H * S + 8 * B * S)}
+    row = {"shape": {"B": B, "S": S, "Hq": H, "Hkv": H, "Dh": Dh}, "query_positions": "causal",
+           "forward_device_ms": min(d_fwd), "backward_device_ms": min(d_bwd),
+           "forward_device_ms_runs": d_fwd, "backward_device_ms_runs": d_bwd,
+           "forward_ms": min(t["fwd"]), "backward_ms": min(t["bwd"]),
+           "plain_forward_ms": min(t["plain_fwd"]), "plain_backward_ms": min(t["plain_bwd"]),
+           "library_ms": lib_ms, "library_forward_ms": lib_fwd_ms,
+           "library_backend": "FLASH_ATTENTION", "gap_forward_vs_library": gap_lib,
+           "timing": "*_ms: CUDA events around eager calls; *device_ms: device time of one call, "
+                     "from CUDA graphs of 10 calls"}
+    for part, (flops, nbytes) in cost.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        row[f"{part}_flops_visible"] = flops
+        row[f"{part}_bytes"] = nbytes
+        row[f"{part}_bound_ms"] = max(t_ops, t_bytes)
+        row[f"{part}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row[f"{part}_device_roofline_share"] = row[f"{part}_bound_ms"] / row[f"{part}_device_ms"]
+    trained = ctx.get("train_attention_launches", {})
+    both = {key: row[f"forward_{key}"] + row[f"backward_{key}"]
+            for key in ("ms", "device_ms", "bound_ms")}
+    both["plain_ms"] = row["plain_forward_ms"] + row["plain_backward_ms"]
+    return {"name": "train_attention", "route": "cuda", "source": TRAIN_ATTN_SOURCE,
+            "replaces": "none: the reference trains through its chunked scan; its Pallas "
+                        "attention has no backward", "launches": sum(trained.values()),
+            "launches_by_kernel": trained, "launches_by_path": {"train": sum(trained.values())},
+            "max_gap": ctx.get("train_attention_gap"), **both,
+            "bound_by": "/".join(sorted({row["forward_bound_by"], row["backward_bound_by"]})),
+            "library_ms": row["library_ms"], "library_backend": row["library_backend"],
+            "device_roofline_share": both["bound_ms"] / both["device_ms"],
+            "top_level_shape": "train_4k: forward + backward", "card": ctx.get("card"),
+            "shapes": {"train_4k": row}}
+
+
 def serve_lengths(batch=8):
     """Decode slot lengths of the serving phases: the smoke prompts (64-512
     tokens) plus up to 32 new tokens, drawn from seed 1."""
@@ -932,6 +1185,9 @@ def phase_kernel_vs_plain(ctx):
             check_case(f"misaligned operands Sq={sq}", (misaligned(q), misaligned(k),
                                                         misaligned(v), qpos, kpos),
                        dtype, failures, results)
+    train_attention_checks(failures, results)
+    ctx["train_attention_gap"] = max(r["err_vs_plain"] for r in results
+                                     if r["path"] == "train_attention")
     paths = {p: sum(r.get("path") == p for r in results) for p in fa.PATHS}
     require(all(paths.values()), f"a path was never checked: {paths}")
     emit("kernel_vs_plain", cases=len(results), failed=failures, cases_by_path=paths,
@@ -2245,10 +2501,13 @@ def restart_run(cfg, opt, data, tmp, steps, checkpoint_every, fail_at):
 
 
 def phase_train(ctx):
-    """``Trainer`` on the card.  No kernel runs: the CUDA kernels are
-    forward only (their wrappers raise under grad), so training goes
-    through ``attention_chunked`` in PyTorch; the launch counts must stay 0.
-    (a) full width and depth, remat "full", no checkpoint: the loss must
+    """``Trainer`` on the card.  Training goes through ``attention_chunked``,
+    whose bfloat16 calls under autograd run the training attention kernels
+    (``kernels/train_attention.py``); the forward-only kernels' launch counts
+    must stay 0.
+    (a) full width and depth, remat "full", no checkpoint: two forward
+    launches (the step's and the recomputation's) and one backward a layer
+    a step; the loss must
     fall; (b) full width, 2 of 32 layers (a 32-layer checkpoint with float32
     moments is about 28 GB): a run that fails at step 5 and restarts from
     its step-4 checkpoint must end with the uninterrupted run's loss and
@@ -2269,8 +2528,8 @@ def phase_train(ctx):
                       global_batch=TRAIN["global_batch"], seed=TRAIN["data_seed"])
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     out = {"arch": cfg.name, "card": ctx.get("card"),
-           "kernel": "none: the CUDA kernels are forward only; training runs attention_chunked "
-                     "in PyTorch (cuBLAS products)",
+           "kernel": "train_attention (forward and backward) under attention_chunked; the "
+                     "forward-only kernels are not launched",
            "data": dataclasses.asdict(data), "optimizer": dataclasses.asdict(opt)}
     try:
         # (a) full width and depth
@@ -2285,8 +2544,13 @@ def phase_train(ctx):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_counts()
-        require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+        require(forward_only(launches) == {"flash_attention": 0, "mamba2_ssd": 0},
                 f"train: a forward-only kernel was launched: {launches}")
+        trained = dict(ta.train_attention.launches_by_kernel)
+        per_step = cfg.n_layers * TRAIN["steps"]
+        require(trained == {"fwd": 2 * per_step, "bwd_dot": per_step, "bwd_dkdv": per_step,
+                            "bwd_dq": per_step}, f"train: training attention launches {trained}")
+        ctx["train_attention_launches"] = trained
         losses = run["losses"]
         state_gb = sum(t.numel() * t.element_size() for part in (run["params"],
                        run["opt_state"]["mu"], run["opt_state"]["nu"]) for t in part.values())
@@ -2299,7 +2563,7 @@ def phase_train(ctx):
             "tokens_per_s": TRAIN["seq_len"] * TRAIN["global_batch"] / float(np.median(steady)),
             "losses": losses, "params_and_moments_gb": state_gb / 2**30,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
-            "kernel_launches": launches}
+            "kernel_launches": launches, "train_attention_launches": trained}
         ctx["train_full"] = out["full"]
         require(len(losses) == TRAIN["steps"] and all(np.isfinite(losses)), "train: losses")
         require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
@@ -2501,8 +2765,8 @@ def phase_train_mesh(ctx):
     un-meshed one, within 1e-6 relative, stablelm_3b and mamba2_370m; bit
     for bit expected, and if not, the first op that differs is named.  (c) elastic restore at 2 layers:
     saved under the fsdp mesh at step 2, restored by a trainer without fsdp
-    after ``remesh`` to the mesh: parameters and moments bit for bit.  No
-    kernel runs (the kernels are forward only)."""
+    after ``remesh`` to the mesh: parameters and moments bit for bit.  The
+    forward-only kernels are never launched."""
     import shutil
     import tempfile
 
@@ -2606,7 +2870,7 @@ def phase_train_mesh(ctx):
         del saved, tr, params, opt_state
         launches = read_counts()
         out["kernel_launches"] = launches
-        require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+        require(forward_only(launches) == {"flash_attention": 0, "mamba2_ssd": 0},
                 f"train_mesh: a forward-only kernel was launched: {launches}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2931,7 +3195,7 @@ def phase_select(ctx):
     emit("select", **out)
     require(not ooms, f"select: variants predicted to fit ran out of memory: {ooms}")
     require(best.name in ran, f"select: the chosen variant {best.name} did not run")
-    require(launches == {"flash_attention": 0, "mamba2_ssd": 0},
+    require(forward_only(launches) == {"flash_attention": 0, "mamba2_ssd": 0},
             f"select: a forward-only kernel was launched: {launches}")
 
 
@@ -3375,10 +3639,13 @@ def phase_kernels(ctx):
             "library_backend": dec["library_backend"], "device_ms": dec["device_ms"],
             "library_device_ms": dec["library_device_ms"], "path": dec["path"],
             "top_level_shape": "decode", "card": ctx.get("card"), "shapes": rows}
-    ctx["kernels_line"] = {"kernels": [attn, ssd_entry(ctx)]}
+    ctx["kernels_line"] = {"kernels": [attn, ssd_entry(ctx), train_attention_entry(ctx)]}
     if ctx.get("launches"):
-        for entry in ctx["kernels_line"]["kernels"]:
+        for entry in ctx["kernels_line"]["kernels"][:2]:
             require(entry["launches"] > 0, f"the main paths never launched {entry['name']}")
+    if "train_attention_launches" in ctx:
+        require(ctx["kernels_line"]["kernels"][2]["launches"] > 0,
+                "the train phase never launched train_attention")
     print(json.dumps(ctx["kernels_line"]), flush=True)
 
 

@@ -7,6 +7,9 @@ Counterpart of ``repro.models.attention``:
 * ``chunked``  online softmax over KV chunks in a Python loop — the running
                ``(m, l, acc)`` stay in fp32 tensors across the loop instead of
                a full score matrix.  Peak memory ``O(Sq x kv_chunk)`` a head.
+               Where autograd records a bfloat16 call on the card, the same
+               function and its gradient run on the training kernels
+               (:func:`repro_torch.kernels.train_attention.train_attention`).
 * ``hopper``   the hand-written CUDA kernel
                (:func:`repro_torch.kernels.ops.flash_attention`): same
                recurrence with ``m / l / acc`` in registers.  The reference's
@@ -25,7 +28,9 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..kernels.ref import attention_mask
+from ..kernels.train_attention import takes_head_dim, train_attention
 from .common import NEG_INF, causal_mask_bias
 
 DEFAULT_CHUNK = 1024
@@ -57,6 +62,17 @@ def attention_xla(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def takes_train_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether :func:`attention_chunked` runs on the training kernels: q on
+    the card, q, k and v in bfloat16, a head width the kernels take (a
+    multiple of 16 up to 128), and autograd recording the call.  Every other
+    call (the CPU, float32, ``no_grad`` and inference, wider heads) keeps the
+    loop."""
+    return (q.is_cuda and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and takes_head_dim(q.shape[-1]) and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad))
+
+
 def attention_chunked(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -72,14 +88,24 @@ def attention_chunked(
 
     As the reference, the last chunk is padded to full length with zero rows
     at position -1 (masked by ``kp >= 0``): for a row whose every key is
-    masked, the padding takes part in the uniform average.
+    masked, the padding takes part in the uniform average.  Where
+    :func:`takes_train_kernel` holds, the training kernels compute the same,
+    padding included.  With telemetry on, ``attn.chunked_kernel_calls`` or
+    ``attn.chunked_loop_calls`` counts the call.
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     b, sq, hq, dh = q.shape
     skv = k.shape[1]
+    n_chunks = -(-skv // kv_chunk)
+    kernel = takes_train_kernel(q, k, v)
+    if obs.enabled():
+        name = "attn.chunked_kernel_calls" if kernel else "attn.chunked_loop_calls"
+        obs.metrics().counter(name).inc()
+    if kernel:
+        return train_attention(q, k, v, q_positions, kv_positions, window, chunk_attn, scale,
+                               pad_keys=n_chunks * kv_chunk)
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
-    n_chunks = -(-skv // kv_chunk)
     pad = n_chunks * kv_chunk - skv
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))

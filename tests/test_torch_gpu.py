@@ -11,6 +11,8 @@ loop.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -25,7 +27,8 @@ from repro_torch.data import DataConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import ops
-from repro_torch.models import Model
+from repro_torch.kernels import train_attention as ta
+from repro_torch.models import Model, attention
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import Request, ServeConfig, Server, TrainConfig, Trainer
 
@@ -236,3 +239,185 @@ def test_server_prefill_graphs_match_eager_on_the_card(arch):
         for key, leaf in state.items():
             for a, b in zip(*((x if isinstance(x, tuple) else (x,)) for x in (leaf, estate[key]))):
                 assert torch.equal(a, b), key
+
+
+#: (B, S, Hq, Hkv, Dh, window, chunk): train_4k's shape, then GQA, a window, a chunk mask
+TRAIN_ATTENTION_CASES = {
+    "train_4k": (1, 4096, 32, 32, 80, None, None),
+    "gqa4_dh128": (2, 300, 8, 2, 128, None, None),
+    "window77_dh64": (2, 300, 4, 2, 64, 77, None),
+    "chunk64_dh80": (1, 333, 4, 4, 80, None, 64),
+}
+
+
+#: the kernels' limits against the plain version (``chip_smoke.py``'s ``TRAIN_ATTN_GAP``
+#: and ``TRAIN_ATTN_ROW_GAP``): the whole tensor's gap, and the worst query row's or key's
+TRAIN_ATTENTION_GAP = 0.005
+TRAIN_ATTENTION_ROW_GAP = 0.017
+
+
+def _row_gap(got, want):
+    """``(worst, whole)``: the worst row's ``|got - want| / |want|`` over the
+    head width (a query row's or a key's vector), each norm at least a tenth of
+    the rows' RMS norm, and the whole tensor's; NaN where ``got`` is not finite."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    ref = want.float().norm(dim=-1)
+    worst = (diff / ref.clamp_min(0.1 * float(ref.square().mean().sqrt()))).max()
+    return float(worst), float(diff.norm() / ref.norm())
+
+
+def _fp8_rows(x):
+    """``x`` rounded to float8 e4m3, one scale a row (its largest magnitude at 448)."""
+    scale = 448.0 / x.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return (x * scale).to(torch.float8_e4m3fn).float() / scale
+
+
+def _plain_train_attention(q, k, v, do, qpos, kpos, window, chunk):
+    """The plain version's ``(out, dq, dk, dv)``."""
+    out, lse = ta.train_attention_plain_forward(q, k, v, qpos, kpos, window, chunk)
+    return (out, *ta.train_attention_plain_backward(q, k, v, out, lse, do, qpos, kpos,
+                                                    window, chunk))
+
+
+def _train_inputs(B, S, Hq, Hkv, Dh, seed=0):
+    q, k, v, qpos, kpos = _attention_inputs(B, S, S, Hq, Hkv, Dh, torch.bfloat16, seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((B, S, Hq, Dh), dtype=np.float32)).bfloat16().cuda()
+    return q, k, v, do, qpos, kpos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TRAIN_ATTENTION_CASES)
+def test_train_attention_kernels_match_plain_on_the_card(case):
+    """The autograd function's forward and backward kernels against the plain
+    version's: in each of out, dq, dk and dv the whole tensor's gap under
+    ``TRAIN_ATTENTION_GAP`` and every query row's or key's under
+    ``TRAIN_ATTENTION_ROW_GAP``."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    B, S, Hq, Hkv, Dh, window, chunk = TRAIN_ATTENTION_CASES[case]
+    q, k, v, do, qpos, kpos = _train_inputs(B, S, Hq, Hkv, Dh)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(ta.train_attention.launches_by_kernel)
+    out = ta.train_attention(*leaves, qpos, kpos, window, chunk)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert all(ta.train_attention.launches_by_kernel[n] == before[n] + 1 for n in ta.KERNELS)
+    want = _plain_train_attention(q, k, v, do, qpos, kpos, window, chunk)
+    gaps = [_row_gap(g, w) for g, w in zip((out.detach(), *got), want)]
+    assert max(whole for _, whole in gaps) <= TRAIN_ATTENTION_GAP, gaps
+    assert max(row for row, _ in gaps) <= TRAIN_ATTENTION_ROW_GAP, gaps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TRAIN_ATTENTION_CASES)
+def test_train_attention_gap_refuses_a_float8_control_on_the_card(case, monkeypatch):
+    """The plain version with P and dS rounded to float8 (one precision below
+    bfloat16) is further from the plain version than both limits, in each of
+    out, dq, dk and dv: the limits tell the precision apart."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    B, S, Hq, Hkv, Dh, window, chunk = TRAIN_ATTENTION_CASES[case]
+    q, k, v, do, qpos, kpos = _train_inputs(B, S, Hq, Hkv, Dh)
+    want = _plain_train_attention(q, k, v, do, qpos, kpos, window, chunk)
+    monkeypatch.setattr(ta, "_rounder", lambda dtype: _fp8_rows)
+    control = _plain_train_attention(q, k, v, do, qpos, kpos, window, chunk)
+    gaps = [_row_gap(c, w) for c, w in zip(control, want)]
+    assert min(whole for _, whole in gaps) > TRAIN_ATTENTION_GAP, gaps
+    assert min(row for row, _ in gaps) > TRAIN_ATTENTION_ROW_GAP, gaps
+
+
+@pytest.mark.gpu
+def test_train_attention_backward_is_bit_exact_on_the_card():
+    """Two backward runs on the same inputs give the same gradients bit for
+    bit (no atomics: every sum in one block, in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, k, v, do, qpos, kpos = _train_inputs(2, 700, 16, 4, 80, seed=3)
+    out, lse = ta.train_attention_forward(q, k, v, qpos, kpos)
+    first = ta.train_attention_backward(q, k, v, out, lse, do, qpos, kpos)
+    second = ta.train_attention_backward(q, k, v, out, lse, do, qpos, kpos)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _leaf_gap(got, want):
+    """The worst leaf's gradient gap: its distance over the larger of its own
+    reference norm and the median leaf's (as the benchmark's check reads it)."""
+    norms = {k: float(w.float().norm()) for k, w in want.items()}
+    med = float(np.median(list(norms.values())))
+    return max(float((got[k].float() - want[k].float()).norm()) / max(norms[k], med)
+               for k in want)
+
+
+#: the 2-layer step's limit: the worst leaf's gradient gap to a float32 copy of the
+#: weights through the kernels over the same gap through the loop.  Two bf16 steps of the
+#: model differ by about 0.012 whatever attention they take, the loop's own gap to float32,
+#: so the kernels are held to the loop's gap and not to a fixed one
+TRAIN_STEP_GAP_RATIO = 1.25
+
+
+def _model_step_gaps(control=False, seed=0):
+    """stablelm_3b's widths, 2 layers, ``remat="full"``: the worst leaf's
+    gradient gap (``_leaf_gap``) of a bf16 step whose chunked attention runs on
+    the kernels, and of the same step through the loop, each against the same
+    weights in float32 through the loop; and the kernels' launches.
+    ``control`` swaps the kernels for the plain version with P and dS rounded
+    to float8."""
+    from unittest import mock
+
+    cfg = dataclasses.replace(tconfigs.get_config("stablelm_3b"), n_layers=2)
+    model = Model(cfg, attn_impl="chunked", device="cuda", remat="full").init(seed=seed)
+    ref = Model(dataclasses.replace(cfg, dtype=torch.float32), attn_impl="chunked",
+                device="cuda", remat="full")
+    params, ref_params = dict(model.named_parameters()), dict(ref.named_parameters())
+    with torch.no_grad():
+        for name, p in ref_params.items():
+            p.copy_(params[name].float())
+    for p in (*params.values(), *ref_params.values()):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1024))).cuda()
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+
+    def grads(m, ps):
+        loss = m.train_loss(batch)
+        return dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
+
+    want = grads(ref, ref_params)
+    before = dict(ta.train_attention.launches_by_kernel)
+    swap = (mock.patch.multiple(ta, train_attention_forward=ta.train_attention_plain_forward,
+                                train_attention_backward=ta.train_attention_plain_backward,
+                                _rounder=lambda dtype: _fp8_rows)
+            if control else contextlib.nullcontext())
+    with swap:
+        got = grads(model, params)
+    torch.cuda.synchronize()
+    launched = {n: ta.train_attention.launches_by_kernel[n] - before[n] for n in ta.KERNELS}
+    with mock.patch.object(attention, "takes_train_kernel", lambda *a: False):
+        loop = grads(model, params)
+    return _leaf_gap(got, want), _leaf_gap(loop, want), launched
+
+
+@pytest.mark.gpu
+def test_model_step_through_the_train_attention_kernels_on_the_card():
+    """A step whose chunked attention runs on the kernels (two forwards and one
+    backward a layer) is as close to float32 as the same step through the loop:
+    its worst leaf's gap at most ``TRAIN_STEP_GAP_RATIO`` times the loop's."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    kernel, loop, launched = _model_step_gaps()
+    assert launched == {"fwd": 4, "bwd_dot": 2, "bwd_dkdv": 2, "bwd_dq": 2}
+    assert kernel <= TRAIN_STEP_GAP_RATIO * loop, (kernel, loop)
+
+
+@pytest.mark.gpu
+def test_model_step_gap_refuses_a_float8_control_on_the_card():
+    """The same step with P and dS rounded to float8 (the plain version in the
+    kernels' place) is further from float32 than ``TRAIN_STEP_GAP_RATIO`` times
+    the loop's gap: the limit tells the precision apart."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    control, loop, launched = _model_step_gaps(control=True)
+    assert not any(launched.values())
+    assert control > TRAIN_STEP_GAP_RATIO * loop, (control, loop)
