@@ -50,10 +50,10 @@ def main(argv=None) -> int:
     import torch
 
     from gpubench import harness, trace
-    from gpubench.reference import model as ref
+    from gpubench.reference import no_tf32
     from gpubench.traffic import lengths
 
-    ref.no_tf32()
+    no_tf32()
     seeds = [args.first_seed + 7919 * i for i in range(args.seeds)]
     run = harness.open_run(ROOT, args.workload, seeds[0], False, args.rehearse)
     run.device = torch.device("cpu") if args.rehearse else torch.device("cuda", 0)
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
         run.seed, run.record = seed, {}
         drv.calls = []
         with torch.no_grad():
-            for j, (name, (shape, std)) in enumerate(ref.layout(run.dims).items()):
+            for j, (name, (shape, std)) in enumerate(drv.ref.layout(run.dims).items()):
                 w = drv.weights[name]
                 w.copy_(harness.draw_leaf(shape, std, seed, j, w.device, w.dtype))
         drv.lengths = lengths.Lengths(drv.pool, seed)

@@ -6,14 +6,39 @@ Everything of one configuration, cell, traffic kind or per-layer metric is
 a file of its own that is found by the name in ``BENCHMARK.json``:
 
 * ``gpubench/configs/<config>.json``
+* ``gpubench/reference/<reference>.py``, the module the configuration's
+  ``reference`` key names (:func:`reference`)
 * ``gpubench/workloads/<cell>.json`` (its ``kind`` names the traffic)
 * ``gpubench/traffic/<kind>.py``, a ``Driver`` class
 * ``gpubench/metrics/<metric>.py``, a ``read(run)`` function
+
+A reference module is the yardstick of one model family, in plain PyTorch,
+importing nothing of the program.  Each function takes ``run``, the
+configuration's ``run`` block (its ``rehearsal`` one on the CPU):
+
+* ``layout(run)``: ``{name: (shape, std)}`` of every leaf, in drawing order
+  (leaf ``i`` is drawn from a generator seeded from its index,
+  :func:`draw_leaf`).  The names are the program's parameter names, which the
+  ``Server`` and the ``Trainer`` adopt.
+* ``served_logits(run, leaf, seqs, precision)``: for each ``(tokens,
+  prompt_len)`` of ``seqs``, the float32 logits at the positions whose
+  argmax the program served; ``leaf(name, layer)`` gives the weights, and
+  ``precision="fp8"`` is the control.
+* ``train_loss(run, params, tokens, targets, precision)``: the mean
+  next-token loss of one row, for a configuration with a training cell.
+* ``body_params(run, active=True)`` and ``head_params(run)``: the
+  parameters of the products a token passes through (the routed experts it
+  takes, or with ``active`` False all of them) and of the head.
+* ``attention_layers(run)``: ``(Hq, Hkv, Dh)`` of each layer application
+  that attends causally over the whole sequence.
+* optionally ``token_flops(run)``: the forward pass's further work a token
+  that is no product and no attention (a state-space scan), 0 without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import sys
@@ -27,6 +52,9 @@ ROOT = GPUBENCH.parent
 #: top-level module names a run may not load: JAX and the JAX package,
 #: compared as whole names (``repro_torch`` is the program, not ``repro``)
 BANNED = ("jax", "jaxlib", "flax", "repro")
+#: the reference of a bare ``run`` block that no configuration file names
+#: one for (the yardstick's own tests): the dense and MoE families'
+DEFAULT_REFERENCE = "model"
 
 
 def load_json(path: Path) -> Dict:
@@ -106,44 +134,83 @@ def reader(name: str):
     return load_module(GPUBENCH / "metrics" / f"{name}.py", name).read
 
 
+def reference(run: Run) -> ModuleType:
+    """The reference module the configuration file names."""
+    return reference_module(run.config["reference"])
+
+
+@functools.lru_cache(maxsize=None)
+def reference_module(name: str) -> ModuleType:
+    """``gpubench/reference/<name>.py``, loaded once a process."""
+    return load_module(GPUBENCH / "reference" / f"{name}.py", f"reference.{name}")
+
+
 # -- the program's side ----------------------------------------------------------
 
 
+#: each key of a configuration file's ``run`` block that shapes the work, and
+#: the attribute of the program's ``ModelConfig`` it is held to
+FIELDS = {"n_layers": "n_layers", "d_model": "d_model", "n_heads": "n_heads",
+          "n_kv_heads": "n_kv_heads", "head_dim": "dh", "d_ff": "d_ff", "vocab": "vocab",
+          "rope_theta": "rope_theta", "qkv_bias": "qkv_bias", "dtype": "dtype", "moe": "moe",
+          "tie_embeddings": "tie_embeddings", "global_period": "global_period",
+          "window": "window", "attn_chunk": "attn_chunk", "nope_on_global": "nope_on_global",
+          "local_rope_theta": "local_rope_theta", "mrope": "mrope", "ssm_state": "ssm_state",
+          "ssm_heads": "ssm_heads", "ssm_head_dim": "ssm_head_dim", "ssm_chunk": "ssm_chunk",
+          "attn_period": "attn_period"}
+#: the keys of the ``moe`` group, each the ``MoEConfig`` attribute of its name
+MOE_FIELDS = ("n_experts", "top_k", "d_ff_expert", "d_ff_shared", "shared_gate", "norm_topk",
+              "capacity_factor")
+
+
+def _plain(value):
+    """A program's field as a configuration file states it."""
+    import torch
+
+    if dataclasses.is_dataclass(value):   # the MoE group
+        return {k: getattr(value, k) for k in MOE_FIELDS}
+    if isinstance(value, torch.dtype):
+        return str(value).replace("torch.", "")
+    return value
+
+
 def port_config(run: Run):
-    """The program's configuration that the file names, held field by field
-    to the file's sizes: a later change to the program's configs cannot
-    change what a cell runs unseen."""
+    """The program's configuration that the file names, held to the file: its
+    name and ``family``, and each field of :data:`FIELDS` equal to the ``run``
+    block's where the block states it, and at the field's default where it
+    does not.  A later change to the program's configs cannot change what a
+    cell runs unseen."""
     from repro_torch.configs import base
 
     port = run.config["port_config"]
     name = run.config["rehearsal"]["port_config"] if run.rehearse else port
     cfg = base.reduced_config(port) if run.rehearse else base.get_config(port)
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
     d = run.dims
-    got = {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.dh, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-           "rope_theta": cfg.rope_theta, "qkv_bias": cfg.qkv_bias,
-           "dtype": str(cfg.dtype).replace("torch.", "")}
-    if cfg.moe is not None:
-        m = cfg.moe
-        got["moe"] = {"n_experts": m.n_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert,
-                      "d_ff_shared": m.d_ff_shared, "shared_gate": m.shared_gate,
-                      "norm_topk": m.norm_topk, "capacity_factor": m.capacity_factor}
-    want = {k: d[k] for k in got}
-    if want.get("moe"):
-        want["moe"] = {k: d["moe"][k] for k in got["moe"]}
-    if got != want or cfg.name != name or cfg.tie_embeddings or cfg.global_period != 1:
-        raise SystemExit(f"the program's {name} is not the configuration file's: {got} != {want}")
+    got = {"name": cfg.name, "family": cfg.family}
+    want = {"name": name, "family": run.config["family"]}
+    for key, attr in FIELDS.items():
+        if key in d:
+            got[key] = _plain(getattr(cfg, attr))
+            want[key] = ({k: d[key].get(k) for k in MOE_FIELDS} if key == "moe" and d[key]
+                         else d[key])
+        else:
+            got[key], want[key] = _plain(getattr(cfg, key)), _plain(defaults[key])
+    if got != want:
+        diff = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+        raise SystemExit(f"the program's {cfg.name} is not the configuration file's "
+                         f"(program, file): {diff}")
     return cfg
 
 
-def draw_weights(dims: Dict, seed: int, device) -> Dict[str, Any]:
-    """Every leaf of :func:`reference.model.layout`, drawn on ``device`` in
-    the served type: each leaf in one call from a generator of its own,
+def draw_weights(dims: Dict, seed: int, device, ref: Optional[ModuleType] = None
+                 ) -> Dict[str, Any]:
+    """Every leaf of the reference module ``ref``'s layout, drawn on ``device``
+    in the served type: each leaf in one call from a generator of its own,
     seeded from ``(seed, leaf)``, so that any leaf can be drawn again alone."""
     import torch
 
-    from gpubench.reference import model as ref
-
+    ref = ref or reference_module(DEFAULT_REFERENCE)
     dtype = getattr(torch, dims["dtype"])
     out = {}
     for i, (name, (shape, std)) in enumerate(ref.layout(dims).items()):

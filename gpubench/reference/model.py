@@ -1,4 +1,6 @@
-"""The plain reference: float32 forward passes of the benchmark's configurations.
+"""The plain reference of the dense and MoE families (configurations whose
+``reference`` is ``model``): float32 forward passes, and the counts of work
+the yardstick reads (``harness.py`` gives the contract of such a module).
 
 Written from the configuration files alone (their ``run`` block), in plain
 PyTorch, with no kernel, cache or batching, and importing nothing of the
@@ -36,10 +38,10 @@ FP8_MAX = 448.0
 Q_BLOCK = 1024
 
 
-def no_tf32() -> None:
-    """A float32 product on the card must not run in TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+#: the ``run`` block's keys this reference models: a configuration that states
+#: another (a tied head, a window, state-space sizes) names another reference
+KEYS = frozenset({"n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+                  "rope_theta", "qkv_bias", "norm_eps", "dtype", "moe"})
 
 
 def dh(run: Dict) -> int:
@@ -52,6 +54,8 @@ def layout(run: Dict) -> Dict[str, Tuple[Tuple[int, ...], float]]:
     embedding), so that a path that skipped one would show; the matrices take
     ``1 / sqrt(fan_in)``.  At these scales an AdamW step of 3e-4 is at least
     an ulp of a bfloat16 weight, so a bfloat16 program moves every leaf."""
+    if set(run) - KEYS:
+        raise ValueError(f"the dense and MoE reference does not model {sorted(set(run) - KEYS)}")
     L, D, V, Hq, Hkv, Dh = (run["n_layers"], run["d_model"], run["vocab"], run["n_heads"],
                             run["n_kv_heads"], dh(run))
     out: Dict[str, Tuple[Tuple[int, ...], float]] = {
@@ -85,6 +89,36 @@ def layout(run: Dict) -> Dict[str, Tuple[Tuple[int, ...], float]]:
     out["final_ln"] = ((D,), 0.02)
     out["lm_head"] = ((D, V), D ** -0.5)
     return out
+
+
+# -- the counts the yardstick reads ----------------------------------------------
+
+
+def body_params(run: Dict, active: bool = True) -> int:
+    """Parameters of the blocks' products that a token passes through: every
+    matrix of attention and of the dense MLP; for a mixture of experts the
+    router, ``top_k`` routed experts (all of them with ``active`` False),
+    the shared expert and its gate.  Norms and biases are not products."""
+    D, Hq, Hkv, Dh = run["d_model"], run["n_heads"], run["n_kv_heads"], dh(run)
+    per = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
+    m = run["moe"]
+    if m is None:
+        per += 3 * D * run["d_ff"]
+    else:
+        n = m["top_k"] if active else m["n_experts"]
+        per += D * m["n_experts"] + 3 * n * D * m["d_ff_expert"] + 3 * D * m["d_ff_shared"]
+        per += D if m["shared_gate"] else 0
+    return run["n_layers"] * per
+
+
+def head_params(run: Dict) -> int:
+    return run["d_model"] * run["vocab"]
+
+
+def attention_layers(run: Dict) -> List[Tuple[int, int, int]]:
+    """``(Hq, Hkv, Dh)`` of each layer that attends, causal over the whole
+    sequence: every layer here."""
+    return [(run["n_heads"], run["n_kv_heads"], dh(run))] * run["n_layers"]
 
 
 # -- precision -------------------------------------------------------------------

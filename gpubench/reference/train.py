@@ -3,17 +3,22 @@
 The optimizer is written here from its equations, as the workload file
 states them: gradients clipped by their global norm, Adam moments with bias
 correction, decoupled weight decay, and a learning rate warmed up linearly
-then decayed on a cosine.  Nothing of the program is imported.
+then decayed on a cosine.  The loss is the configuration's reference
+module's ``train_loss``.  Nothing of the program is imported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from types import ModuleType
+from typing import Dict, List, Optional
 
 import torch
 
-from . import model
+from gpubench import harness
+
+#: the reference a caller that names none trains: the dense and MoE families'
+model = harness.reference_module(harness.DEFAULT_REFERENCE)
 
 
 def learning_rate(opt: Dict, step: int) -> float:
@@ -25,17 +30,19 @@ def learning_rate(opt: Dict, step: int) -> float:
 
 
 def run_steps(run: Dict, opt: Dict, params: Dict[str, torch.Tensor], batches: List[Dict],
-              precision: str = "fp32") -> Dict[str, object]:
+              precision: str = "fp32", ref: Optional[ModuleType] = None) -> Dict[str, object]:
     """Trains the float32 ``params`` (updated in place) on ``batches`` (one
-    row each: ``tokens``, ``targets``).  Returns each step's loss and the
-    first step's gradient norm by leaf, before clipping."""
+    row each: ``tokens``, ``targets``) through the reference module ``ref``'s
+    loss.  Returns each step's loss and the first step's gradient norm by
+    leaf, before clipping."""
+    ref = ref or model
     mu = {k: torch.zeros_like(p) for k, p in params.items()}
     nu = {k: torch.zeros_like(p) for k, p in params.items()}
     losses, first_grad = [], None
     for step, batch in enumerate(batches, start=1):
         for p in params.values():
             p.requires_grad_(True)
-        loss = model.train_loss(run, params, batch["tokens"], batch["targets"], precision)
+        loss = ref.train_loss(run, params, batch["tokens"], batch["targets"], precision)
         grads = torch.autograd.grad(loss, list(params.values()))
         losses.append(float(loss.detach()))
         with torch.no_grad():

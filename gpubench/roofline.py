@@ -1,6 +1,9 @@
 """The yardstick's arithmetic: the card's peaks, the least time of an
 attention launch, and model FLOPs of useful work (busy time, a union of
-intervals, is ``trace.py``'s).
+intervals, is ``trace.py``'s).  What depends on the model family (the
+products' parameters, which layers attend and how, further work a token)
+comes from the configuration's reference module (``harness.reference``);
+without one, from the dense and MoE families'.
 
 Peaks are NVIDIA's published ones for one H100 SXM (dense bf16 on the tensor
 cores, HBM3), which assume its full 700 W; a run prints the card's power
@@ -9,9 +12,13 @@ limit beside every share of them.
 
 from __future__ import annotations
 
+from collections import Counter
+from types import ModuleType
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+
+from gpubench import harness
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -54,72 +61,64 @@ def least_seconds(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
 
 
-def serve_attention_seconds(run: Dict, max_len: int,
-                            requests: Iterable[Tuple[int, int]]) -> float:
+def family(ref: Optional[ModuleType]) -> ModuleType:
+    """The reference module whose counts a run is measured by."""
+    return ref or harness.reference_module(harness.DEFAULT_REFERENCE)
+
+
+def serve_attention_seconds(run: Dict, max_len: int, requests: Iterable[Tuple[int, int]],
+                            ref: Optional[ModuleType] = None) -> float:
     """The least time the card could take for the attention launches that
-    ``requests`` (``(prompt_len, tokens served)``) need: per layer, the
-    prompt's one causal launch, then one row a decoded token (query at
-    ``prompt_len + i - 1``, keys ``0 ..`` it).  A decode row is bound by its
-    bytes at every grouping (its operations per byte are the query heads per
-    K / V head), so rows that shared a launch add up as the launch would."""
-    Hq, Hkv, Dh, L = run["n_heads"], run["n_kv_heads"], head_dim(run), run["n_layers"]
-    total = 0.0
-    for prompt, served in requests:
-        total += least_seconds(*attention_row_bound(0, prompt, max_len, Hq, Hkv, Dh))
-        for i in range(1, served):
-            total += least_seconds(*attention_row_bound(prompt + i - 1, 1, max_len, Hq, Hkv, Dh))
-    return L * total
+    ``requests`` (``(prompt_len, tokens served)``) need: in each layer that
+    attends, the prompt's one causal launch, then one row a decoded token
+    (query at ``prompt_len + i - 1``, keys ``0 ..`` it).  A decode row is
+    bound by its bytes at every grouping (its operations per byte are the
+    query heads per K / V head), so rows that shared a launch add up as the
+    launch would."""
+    requests = list(requests)
+    out = 0.0
+    for (Hq, Hkv, Dh), layers in Counter(family(ref).attention_layers(run)).items():
+        total = 0.0
+        for prompt, served in requests:
+            total += least_seconds(*attention_row_bound(0, prompt, max_len, Hq, Hkv, Dh))
+            for i in range(1, served):
+                total += least_seconds(*attention_row_bound(prompt + i - 1, 1, max_len, Hq, Hkv,
+                                                            Dh))
+        out += layers * total
+    return out
 
 
-def head_dim(run: Dict) -> int:
-    return run.get("head_dim") or run["d_model"] // run["n_heads"]
-
-
-def body_params(run: Dict, active: bool = True) -> int:
-    """Parameters of the blocks' products that a token passes through: every
-    matrix of attention and of the dense MLP; for a mixture of experts the
-    router, ``top_k`` routed experts (all of them with ``active`` False),
-    the shared expert and its gate.  Norms and biases are not products."""
-    D, Hq, Hkv, Dh = run["d_model"], run["n_heads"], run["n_kv_heads"], head_dim(run)
-    per = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
-    m = run["moe"]
-    if m is None:
-        per += 3 * D * run["d_ff"]
-    else:
-        n = m["top_k"] if active else m["n_experts"]
-        per += D * m["n_experts"] + 3 * n * D * m["d_ff_expert"] + 3 * D * m["d_ff_shared"]
-        per += D if m["shared_gate"] else 0
-    return run["n_layers"] * per
-
-
-def head_params(run: Dict) -> int:
-    return run["d_model"] * run["vocab"]
-
-
-def attention_flops(run: Dict, pairs: int) -> int:
+def attention_flops(run: Dict, pairs: int, ref: Optional[ModuleType] = None) -> int:
     """The two products (scores, then values) over ``pairs`` visible pairs,
-    every layer and query head."""
-    return 4 * run["n_layers"] * run["n_heads"] * head_dim(run) * pairs
+    every layer that attends and its query heads."""
+    return 4 * sum(Hq * Dh for Hq, _, Dh in family(ref).attention_layers(run)) * pairs
 
 
-def serve_flops(run: Dict, prompt: int, served: int) -> int:
+def serve_flops(run: Dict, prompt: int, served: int, ref: Optional[ModuleType] = None) -> int:
     """Model FLOPs of one served request: the prompt's products (the head on
-    its last position only, as serving needs) and causal attention, then each
-    decoded token's products, head and attention over the keys before it."""
-    body, head = body_params(run), head_params(run)
-    flops = 2 * body * prompt + 2 * head + attention_flops(run, prompt * (prompt + 1) // 2)
+    its last position only, as serving needs), causal attention and further
+    work a token, then each decoded token's products, head, attention over
+    the keys before it and further work."""
+    ref = family(ref)
+    body, head = ref.body_params(run), ref.head_params(run)
+    other = getattr(ref, "token_flops", lambda run: 0)(run)
+    flops = (2 * body * prompt + 2 * head + other * prompt
+             + attention_flops(run, prompt * (prompt + 1) // 2, ref))
     for i in range(1, served):
-        flops += 2 * (body + head) + attention_flops(run, prompt + i)
+        flops += 2 * (body + head) + other + attention_flops(run, prompt + i, ref)
     return flops
 
 
-def train_flops(run: Dict, seq_len: int, rows: int) -> int:
+def train_flops(run: Dict, seq_len: int, rows: int, ref: Optional[ModuleType] = None) -> int:
     """Model FLOPs of a training step: 6 x the products' parameters (the head
-    included, the embedding table not) a token, and the causal attention's
-    forward and backward products (3 x the forward's). Recomputation does
-    not count."""
-    per_row = 6 * (body_params(run) + head_params(run)) * seq_len
-    per_row += 3 * attention_flops(run, seq_len * (seq_len + 1) // 2)
+    included, the embedding table not) a token, and 3 x the forward's causal
+    attention and further work a token (forward and backward).
+    Recomputation does not count."""
+    ref = family(ref)
+    other = getattr(ref, "token_flops", lambda run: 0)(run)
+    per_row = 6 * (ref.body_params(run) + ref.head_params(run)) * seq_len
+    per_row += 3 * attention_flops(run, seq_len * (seq_len + 1) // 2, ref)
+    per_row += 3 * other * seq_len
     return rows * per_row
 
 

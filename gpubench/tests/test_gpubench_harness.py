@@ -14,7 +14,7 @@ import sys
 import numpy as np
 import pytest
 
-from gpubench import harness
+from gpubench import harness, roofline
 
 ROOT = harness.ROOT
 BENCH = harness.load_json(ROOT / "BENCHMARK.json")
@@ -202,4 +202,85 @@ def test_a_new_cell_and_metric_are_files_alone(tmp_path):
     line, _ = rehearse(tmp_path, "stablelm_3b.throwaway", 1, root=root)
     assert line["correct"] is True
     assert line["metrics"]["throwaway.requests"]["value"] == line["attempted"] > 0
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+#: a reference module of a family of its own: the dense reference, with the
+#: attention of every other layer only (``attention_layers``), as a hybrid's
+#: would state fewer attending layers than layers, and further work a token
+#: (``token_flops``), as a state-space scan's
+THROWAWAY_REFERENCE = '''"""A throwaway family: the dense reference, attending in every other
+layer, with 1,000 further FLOPs a token."""
+
+from gpubench.reference import model as dense
+from gpubench.reference.model import *  # noqa: F401,F403
+
+
+def attention_layers(run):
+    return dense.attention_layers(run)[::2]
+
+
+def token_flops(run):
+    return 1000
+'''
+
+
+def test_a_new_configuration_is_files_alone(tmp_path):
+    """A later change adds a configuration that names a reference module of
+    its own, and a cell of it, as new files and new entries of BENCHMARK.json,
+    editing no file that is there; the yardstick follows the module's counts."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "gpubench", root / "gpubench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(ROOT / "src", root / "src", ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (root / "gpubench").rglob("*") if p.is_file()}
+    config = json.loads((ROOT / "gpubench/configs/stablelm_3b.json").read_text())
+    config.update(name="throwaway", reference="throwaway")
+    (root / "gpubench/configs/throwaway.json").write_text(json.dumps(config))
+    (root / "gpubench/reference/throwaway.py").write_text(THROWAWAY_REFERENCE)
+    wl = json.loads((ROOT / "gpubench/workloads/stablelm_3b.prefill_heavy.json").read_text())
+    wl.update(name="throwaway.prefill", config="throwaway")
+    (root / "gpubench/workloads/throwaway.prefill.json").write_text(json.dumps(wl))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(bench["configs"][0], name="throwaway",
+                                 file="gpubench/configs/throwaway.json"))
+    bench["workloads"].append({"name": "throwaway.prefill", "config": "throwaway",
+                               "traffic": "serve_backlog", "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "stablelm_3b.prefill_heavy" in m.get("workloads", []):
+            m["workloads"].append("throwaway.prefill")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    line, _ = rehearse(tmp_path, "throwaway.prefill", 0, root=root)
+    assert line["correct"] is True and "serve_tokens_per_s" in line["metrics"]
+
+    # the readers of the checkout, on one second of device time and a
+    # two-second window: the throwaway cell's inputs follow its module
+    code = f"""if True:
+        import json, sys
+        sys.path[:0] = [{str(root)!r}, {str(root / "src")!r}]
+        from gpubench import harness, roofline, trace
+        assert harness.ROOT == harness.Path({str(root)!r})
+
+        def read(cell):
+            run = harness.open_run(harness.ROOT, cell, 0, True, False)
+            run.trace = trace.TraceData(trace.Events.of([("flash_attention_k", 0.0, 1.0)]),
+                                        trace.Events.of([(trace.WINDOW, 0.0, 2.0)]))
+            run.record.update(served_traced=[(300, 4), (40, 2)], max_len=4096)
+            return [harness.reader(m)(run) for m in ("attn_kernel_roofline", "mfu.serve")] + [
+                roofline.train_flops(run.dims, 64, 1, harness.reference(run))]
+
+        print(json.dumps([read("stablelm_3b.prefill_heavy"), read("throwaway.prefill")]))
+    """
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (roof, mfu, train), (roof_half, mfu_half, train_half) = json.loads(out.stdout)
+    assert roof_half == pytest.approx(roof / 2, rel=1e-12)
+    # 16 of 32 layers' attention left out (32 heads of 80, the pairs by hand),
+    # 1,000 FLOPs added for each of the 303 + 41 tokens computed
+    pairs = 300 * 301 // 2 + 301 + 302 + 303 + 40 * 41 // 2 + 41
+    moved = (4 * 16 * 32 * 80 * pairs - 1000 * 344) / roofline.PEAK_BF16_FLOPS / 2.0 * 100
+    assert mfu - mfu_half == pytest.approx(moved, rel=1e-9)
+    # training: forward and backward (3 x) of both terms over 64 tokens
+    assert train - train_half == 3 * (4 * 16 * 32 * 80 * 64 * 65 // 2 - 1000 * 64)
     assert all(p.read_bytes() == b for p, b in before.items())

