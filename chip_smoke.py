@@ -91,6 +91,14 @@ phase prints one JSON line:
                          greedy ``decode_step``s (self- and cross-attention, both on the
                          split path); launches, logits against ``attn_impl="chunked"``, the
                          float32 check at 2 layers
+13b. ``zamba2_7b``       Zamba2-7B (port-only; the benchmark's zamba2_7b.prefill_long): the SSD
+                         kernel at two B / C groups against its plain version (norm gap) and
+                         against each head's group expanded (bit for bit), one group's axis
+                         bit for bit against the old ``(B, S, N)`` call at both models'
+                         prefill, ``choose_plan`` at 112 heads, attention at Dh 224 with its
+                         scale on ``mma`` and ``split``, ptxas's counts of what it launches;
+                         then ``Server.serve`` at full width and depth as ``serve_zamba2``
+                         (81 SSD launches a prefill, 13 attention launches a forward pass)
 14. ``train``            ``Trainer`` on the card, attention on the training kernels
                          (two forward and one backward launch a layer a step), the
                          forward-only kernels unlaunched: (a) stablelm_3b at full width and
@@ -201,7 +209,8 @@ from repro_torch.runtime.serving import StepGraph  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
            "serve_llama4", "serve_gemma3", "serve_qwen2_7b", "serve_granite", "serve_whisper"]
-PHASES = ["device", "build", "tune", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "train",
+PHASES = ["device", "build", "tune", "kernel_vs_plain", "ssd_vs_plain", *SERVING, "zamba2_7b",
+          "train",
           "train_mesh", "dryrun", "select", "examples", "kernels", "serve_throughput"]
 # not run by default: --phases serve,...,serve_whisper,profile; --phases device,dryrun_all
 EXTRA_PHASES = ["profile", "dryrun_all"]
@@ -1885,7 +1894,8 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     require(not bool(torch.stack(run["nan_seen"]).any()), "NaN in the logits")
     forwards = steps["prefill"] + steps["decode"]
     require(steps["prefill"] == SERVE["n_requests"], "not one prefill a request")
-    want = expected(steps["prefill"], forwards)
+    # serving launches no training kernel (``read_counts`` counts them too)
+    want = {**expected(steps["prefill"], forwards), "train_attention": 0}
     require(launches == want, (
         f"{cfg.name}: launches {launches}, expected {want} for {steps['prefill']} prefills and "
         f"{forwards} forward passes: a kernel call went around its kernel"))
@@ -2010,13 +2020,11 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     for i, (name, batch, max_len) in enumerate(prompts):
         model32 = None
         if spread is not None and i == 0:   # the float32 check: on the first prompt
-            cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
-                                        n_layers=fp32_layers or cfg.n_layers)
-            model32 = Model(cfg32, attn_impl=server.model.attn_impl, ssd_impl="hopper",
-                            device=dev)
-            model32.load_state_dict({
-                k: v[:cfg32.n_layers] if k.startswith("layers.") else v
-                for k, v in server.model.state_dict().items()})
+            cfg32, state32 = first_layers(cfg, server.model.state_dict(),
+                                          fp32_layers or cfg.n_layers)
+            model32 = Model(dataclasses.replace(cfg32, dtype=torch.float32),
+                            attn_impl=server.model.attn_impl, ssd_impl="hopper", device=dev)
+            model32.load_state_dict(state32)
         checks[name] = logit_checks(server.model, batch, max_len, compare_impl, tol, spread,
                                     model32)
         del model32
@@ -2028,7 +2036,8 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
          heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.dh, d_ff=cfg.d_ff,
          vocab=cfg.vocab,
          ssm=dict(heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
-                  attn_period=cfg.attn_period) if cfg.family in ("ssm", "hybrid") else None,
+                  attn_period=cfg.attn_period, groups=cfg.ssm_groups)
+         if cfg.family in ("ssm", "hybrid", "zamba2") else None,
          moe=dataclasses.asdict(cfg.moe) if cfg.moe is not None else None,
          cuts=cuts or {}, dtype="bfloat16", params=n_params, weights_gb=round(w_gb, 3),
          init_seconds=round(init_s, 3), init_peak_gb=round(init_peak_gb, 3),
@@ -2065,6 +2074,22 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
     del server
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def first_layers(cfg, state, n):
+    """``cfg`` and its weights ``state`` cut to the first ``n`` layers: the
+    stacked ``layers.*`` / ``mamba.*`` leaves, and for zamba2 the shared-block
+    applications that come before layer ``n`` (``apps.*``)."""
+    if n == cfg.n_layers:
+        return cfg, state
+    cut = {"n_layers": n}
+    apps = None
+    if cfg.zamba2 is not None:
+        ids = tuple(i for i in cfg.zamba2.hybrid_layer_ids if i < n)
+        cut["zamba2"], apps = dataclasses.replace(cfg.zamba2, hybrid_layer_ids=ids), len(ids)
+    return dataclasses.replace(cfg, **cut), {
+        k: v[:n] if k.startswith(("layers.", "mamba.")) else v[:apps] if k.startswith("apps.")
+        else v for k, v in state.items()}
 
 
 def phase_serve(ctx):
@@ -2107,6 +2132,134 @@ def phase_serve_zamba2(ctx):
                lambda prefills, forwards: {"flash_attention": apps * forwards,
                                            "mamba2_ssd": cfg.n_layers * prefills},
                {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, ssd_spread("zamba2_2_7b"))
+
+
+def norm_gap(got, want) -> float:
+    """The relative norm of the difference: what a float8 control must fail."""
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def fp8_round(t):
+    return t.to(torch.float8_e4m3fn).to(t.dtype)
+
+
+def grouped_ssd(S, H, P, N, G, seed=0):
+    """Zamba2's SSD inputs in the model's layout: bf16 x, B and C cut from one
+    ``(1, S, H P + 2 G N)`` tensor (B / C ``(1, S, G, N)`` views), fp32 dt,
+    the model's initial decays."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal((1, S, H * P + 2 * G * N), dtype=np.float32)
+                           * 0.5).to(DEVICE).bfloat16()
+    x = xbc[..., :H * P].reshape(1, S, H, P)
+    bm = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    cm = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((1, S, H), dtype=np.float32)).to(DEVICE))
+    return x, dt, -torch.linspace(1.0, 16.0, H, device=DEVICE), bm, cm
+
+
+#: the norm gaps the zamba2_7b phase holds its kernels to (a float8 control
+#: must read above each): the SSD's mma path keeps near-fp32 products, the
+#: attention's bf16 output comes from the same online softmax as its plain
+#: version's
+ZAMBA2_GAPS = {"ssd": 1e-3, "attention": 1e-2}
+
+
+def phase_zamba2_7b(ctx):
+    """Zamba2-7B (port-only, the benchmark's zamba2_7b.prefill_long): its
+    kernels at its own shapes, then the model at full width and depth
+    through ``Server.serve`` as every serving phase drives it.
+
+    * the SSD kernel at two B / C groups (112 heads of 64, N = 64), in the
+      model's layout, from zero and from a carried state, at 300 and 2,048
+      tokens: against ``ssd_plain`` by the norm gap, and bit for bit against
+      the kernel fed each head's group expanded (G = H);
+    * at one group, ``(B, S, N)`` and ``(B, S, 1, N)`` bit for bit at
+      mamba2_370m's and zamba2_2_7b's 512-token prefill;
+    * ``choose_plan`` at one prompt of 112 heads;
+    * attention at Dh 224 with the scale ``(224 / 2) ** -0.5`` on ``mma`` (a
+      2,000-token prompt) and ``split`` (24 slots, a 4,096-key cache);
+    * ptxas's registers, spills and shared memory of the instantiations the
+      model launches (the build phase's ``resources``)."""
+    failures, results = [], []
+    cfg = get_config("zamba2_7b")
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    f32 = torch.float32
+    lim = ZAMBA2_GAPS
+    for S in (300, 2048):
+        x, dt, a, bm, cm = grouped_ssd(S, H, P, N, G, seed=S)
+        h0 = torch.from_numpy(np.random.default_rng(S + 1).standard_normal(
+            (1, H, P, N), dtype=np.float32) * 0.3).to(DEVICE)
+        for start in (None, h0):
+            before = dict(ssd.mamba2_ssd.launches_by_path)
+            y, h = ops.mamba2_ssd(x, dt, a, bm, cm, h0=start, out_dtype=f32)
+            torch.cuda.synchronize()
+            path = ssd_path_launched(before)
+            yp, hp = ssd.ssd_plain(x, dt, a, bm, cm, start, out_dtype=f32)
+            yc, _ = ssd.ssd_plain(fp8_round(x), dt, a, bm, cm, start, out_dtype=f32)
+            wide = [t.repeat_interleave(H // G, dim=2) for t in (bm, cm)]
+            yw, hw = ops.mamba2_ssd(x, dt, a, *wide, h0=start, out_dtype=f32)
+            gaps = {"y": norm_gap(y, yp), "h": norm_gap(h, hp), "control_y": norm_gap(yc, yp)}
+            same = bool(torch.equal(y, yw) and torch.equal(h, hw))
+            ok = (path == "mma" and gaps["y"] < lim["ssd"] and gaps["h"] < lim["ssd"]
+                  and gaps["control_y"] > lim["ssd"] and same)
+            name = f"ssd G={G} S={S} {'h0' if start is not None else 'zero'}"
+            results.append({"case": name, "path": path, **gaps, "groups_expanded_bit_for_bit":
+                            same, "ok": ok})
+            if not ok:
+                failures.append(name)
+    for model, (H1, P1, N1) in SSD_MODELS.items():
+        x, dt, a, bm, cm = grouped_ssd(512, H1, P1, N1, 1)
+        flat = ops.mamba2_ssd(x, dt, a, bm[:, :, 0], cm[:, :, 0], out_dtype=f32)
+        axis = ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=f32)
+        same = all(torch.equal(p_, q_) for p_, q_ in zip(flat, axis))
+        results.append({"case": f"{model} one group axis", "bit_for_bit": same, "ok": same})
+        if not same:
+            failures.append(f"{model} one group axis")
+    plan = ssd.choose_plan(1, H, P, N, torch.bfloat16)
+    scale = (cfg.dh / 2) ** -0.5
+    for path in ("mma", "split"):
+        if path == "mma":
+            q, k, v, qpos, kpos = make_case(1, 2000, 2000, 32, 32, cfg.dh, torch.bfloat16)
+        else:
+            q, k, v, qpos, kpos = make_case(24, 1, 4096, 32, 32, cfg.dh, torch.bfloat16)
+            qpos = torch.arange(1000, 1000 + 24 * 120, 120, dtype=torch.int32,
+                                device=DEVICE)[:, None]
+        before = dict(fa.flash_attention.launches_by_path)
+        got = ops.flash_attention(q, k, v, qpos, kpos, scale=scale)
+        torch.cuda.synchronize()
+        took = launched_path(before)
+        want = fa.flash_attention_plain(q, k, v, qpos, kpos, scale=scale)
+        gaps = {"out": norm_gap(got, want),
+                "unscaled": norm_gap(fa.flash_attention_plain(q, k, v, qpos, kpos), want),
+                "control": norm_gap(fa.flash_attention_plain(fp8_round(q), k, v, qpos, kpos,
+                                                             scale=scale), want)}
+        ok = (took == path and gaps["out"] < lim["attention"] < gaps["unscaled"]
+              and gaps["control"] > lim["attention"])
+        results.append({"case": f"attention Dh {cfg.dh} scale {scale:.5f}", "path": took,
+                        **gaps, "ok": ok})
+        if not ok:
+            failures.append(f"attention Dh {cfg.dh} {path}")
+    built = {k: {f: r.get(f) for f in ("registers", "spill_store_bytes", "spill_load_bytes",
+                                        "shared_bytes", "dynamic_smem_bytes")}
+             for k, r in ctx.get("resources", {}).items()
+             if (r.get("ssd_path") == "mma" and r.get("state") == N)
+             or (r.get("path") in ("mma", "split") and r.get("dh_class") == 256)}
+    emit("zamba2_7b", failed=failures, plan=dataclasses.asdict(plan), gap_limits=lim,
+         results=results, built=built or "run the build phase first")
+    require(not failures, f"zamba2_7b kernels disagree on: {failures}")
+    require((plan.path, plan.p_block, plan.waves) == ("mma", 32, 1),
+            f"zamba2_7b: the SSD plan {plan}")
+
+    # the float32 check at the first 24 layers (4 applications, both blocks):
+    # through all 81 the two scans' summation orders (64- against 256-row
+    # chunks, about 1e-6 apart) reach the decode step's logits at 1.6e-3,
+    # over the check's 1e-3 (measured on an H100 80GB HBM3)
+    apps = len(cfg.zamba2.hybrid_layer_ids)
+    serve_path(ctx, "zamba2_7b", "zamba2_7b",
+               lambda prefills, forwards: {"flash_attention": apps * forwards,
+                                           "mamba2_ssd": cfg.n_layers * prefills},
+               {"ssd_impl": "chunked"}, 1e-1, SSD_WHY, ssd_spread("zamba2_7b"), fp32_layers=24)
 
 
 ATTN_WHY = ("bf16: the kernel and attention_chunked round each layer's attention output on "

@@ -29,6 +29,9 @@ ARCH_IDS = [
     "mamba2_370m",
     "zamba2_2_7b",
 ]
+#: configurations of the port alone (no counterpart in the reference):
+#: ``get_config`` resolves them, ``ARCH_IDS`` and ``all_configs`` leave them out
+PORT_ONLY_IDS = ["zamba2_7b"]
 
 
 @dataclass(frozen=True)
@@ -78,7 +81,7 @@ def shape_cells(arch: str) -> List[ShapeCell]:
 
 def _module(arch: str):
     arch = arch.replace("-", "_")
-    if arch not in ARCH_IDS:
+    if arch not in ARCH_IDS and arch not in PORT_ONLY_IDS:
         raise NotImplementedError(
             f"config {arch!r} is not ported yet; ported so far: {', '.join(ARCH_IDS)}"
         )
@@ -106,9 +109,11 @@ def param_count(cfg: ModelConfig) -> int:
     (``a_log``, ``d_skip``, ``dt_bias``), and the hybrid's two shared-block
     norms; for ``audio`` every norm (``ln1``, ``ln2``, ``lnx``, ``enc_ln``,
     ``final_ln``).  The port keeps the formula so that the two counts stay
-    equal."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+    equal.  The zamba2 family (port-only) is counted exactly, every leaf."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "zamba2"):
         raise ValueError(f"param_count: unknown family {cfg.family!r}")
+    if cfg.family == "zamba2":
+        return _zamba2_param_count(cfg)
     D, L, V, F = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.d_ff
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     total = V * D  # embed
@@ -136,6 +141,23 @@ def param_count(cfg: ModelConfig) -> int:
     if cfg.family == "hybrid":  # the one shared block
         total += D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
     return total
+
+
+def _zamba2_param_count(cfg: ModelConfig) -> int:
+    """Every leaf of :mod:`repro_torch.models.zamba2`: the embedding (the
+    tied head), the mamba layers, the shared blocks once each, and each
+    application's adapter and linear."""
+    z = cfg.zamba2
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, z.ssm_groups
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    d_inner, conv_dim = mamba_dims(D, H, P, N, G)
+    mamba = (D * (2 * d_inner + 2 * G * N + H) + 5 * conv_dim + 3 * H + d_inner
+             + d_inner * D + D)
+    block = 2 * D + 2 * D * (Hq + 2 * Hkv) * Dh + Hq * Dh * D + D + 3 * D * F
+    app = D * z.adapter_rank + z.adapter_rank * 2 * F + D * D
+    return (V * D + cfg.n_layers * mamba + z.mem_blocks * block
+            + len(z.hybrid_layer_ids) * app + D)
 
 
 def active_param_count(cfg: ModelConfig) -> int:

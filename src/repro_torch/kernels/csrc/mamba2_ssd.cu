@@ -31,7 +31,11 @@
 //     (ssd_plain) walks the same 64-row chunks;
 //   * x, dt, B, C and y are read and written in the model's layout through
 //     their strides, so the column slices of the convolution's output that the
-//     model hands over are not copied.
+//     model hands over are not copied;
+//   * B and C come in G groups (Zamba2-7B has two): the block of head h reads
+//     group h * G / H (the H / G heads of a group are neighbours).  One launch
+//     a layer whatever G; at G = 1 the group offset is 0 and nothing else
+//     changes.
 //
 // What bounds it on an H100: at the main path's shapes (one prompt of 512
 // tokens; mamba2_370m: H = 32, P = 64, N = 128; zamba2_2_7b: H = 80, P = 64,
@@ -107,10 +111,10 @@ struct Params {
   const float* h0;  // null: start from zero
   void* y;
   float* h_last;
-  int B, S, H, P;
+  int B, S, H, P, G;
   int64_t x_sb, x_ss, x_sh;
   int64_t dt_sb, dt_ss, dt_sh;
-  int64_t b_sb, b_ss, c_sb, c_ss;
+  int64_t b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
   int64_t y_sb, y_ss, y_sh;
   int dt_bf16, out_bf16;
   int vec;  // x, B and C rows start on 16-byte boundaries (mma path)
@@ -177,8 +181,9 @@ __global__ void __launch_bounds__(kThreads) mamba2_ssd_kernel(const Params p) {
   const float a = p.a[head];
 
   const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + head * p.x_sh + p0;
-  const T* bg = static_cast<const T*>(p.bm) + b * p.b_sb;
-  const T* cg = static_cast<const T*>(p.cm) + b * p.c_sb;
+  const int grp = head * p.G / p.H;  // the B / C group this head reads
+  const T* bg = static_cast<const T*>(p.bm) + b * p.b_sb + grp * p.b_sg;
+  const T* cg = static_cast<const T*>(p.cm) + b * p.c_sb + grp * p.c_sg;
   const int64_t dt0 = b * p.dt_sb + head * p.dt_sh;
   const int64_t y0 = b * p.y_sb + head * p.y_sh + p0;
 
@@ -511,8 +516,9 @@ __global__ void __launch_bounds__(kMmaThreads, (N <= 64 && PS <= 32) ? 2 : 1)
   const bool vec = p.vec != 0;
 
   const bf16* xg = static_cast<const bf16*>(p.x) + b * p.x_sb + head * p.x_sh + p0;
-  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb;
-  const bf16* cg = static_cast<const bf16*>(p.cm) + b * p.c_sb;
+  const int grp = head * p.G / p.H;  // the B / C group this head reads
+  const bf16* bg = static_cast<const bf16*>(p.bm) + b * p.b_sb + grp * p.b_sg;
+  const bf16* cg = static_cast<const bf16*>(p.cm) + b * p.c_sb + grp * p.c_sg;
   const int64_t dt0 = b * p.dt_sb + head * p.dt_sh;
   const int64_t y0 = b * p.y_sb + head * p.y_sh + p0;
   const int64_t hbase = ((int64_t)(b * p.H + head) * p.P + p0) * N;
@@ -870,22 +876,24 @@ long long repro_mamba2_ssd_smem_bytes(int path, int n, int ps) {
 // Enqueues the kernel of `path` on `stream` and returns cudaGetLastError()
 // (0 = launched), or a negative code for arguments no instantiation takes:
 // -1 state width, -2 p_block, -3 element type, -4 shape, -5 a path that does
-// not take the element type (fp32: fma; bf16: mma).  dtype codes: 0 float32,
-// 1 bfloat16 (x, bm and cm share `dtype`; a is float32; h0 and h_last are
-// float32 and contiguous (B, H, P, N); h0 may be null).  `vec` non-zero
-// promises that x, bm and cm and all their strides are multiples of 16 bytes
-// (the mma path then copies 16 bytes at a time).  Never synchronises,
-// allocates nothing.
+// not take the element type (fp32: fma; bf16: mma), -6 H not a multiple of
+// the groups G.  dtype codes: 0 float32, 1 bfloat16 (x, bm and cm share
+// `dtype`; a is float32; h0 and h_last are float32 and contiguous
+// (B, H, P, N); h0 may be null).  bm and cm are (B, S, G, N) through their
+// strides (b_sg / c_sg between groups).  `vec` non-zero promises that x, bm
+// and cm and all their strides are multiples of 16 bytes (the mma path then
+// copies 16 bytes at a time).  Never synchronises, allocates nothing.
 int repro_mamba2_ssd(
     const void* x, const void* dt, const void* a, const void* bm, const void* cm,
     const void* h0, void* y, void* h_last,
-    int B, int S, int H, int P, int N,
+    int B, int S, int H, int P, int N, int G,
     int64_t x_sb, int64_t x_ss, int64_t x_sh,
     int64_t dt_sb, int64_t dt_ss, int64_t dt_sh,
-    int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
+    int64_t b_sb, int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss, int64_t c_sg,
     int64_t y_sb, int64_t y_ss, int64_t y_sh,
     int dtype, int dt_dtype, int out_dtype, int p_block, int path, int vec, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || B > 65535 || H > 65535) return -4;
+  if (G <= 0 || H % G != 0) return -6;
   if (dtype < 0 || dtype > 1 || dt_dtype < 0 || dt_dtype > 1 || out_dtype < 0 ||
       out_dtype > 1)
     return -3;
@@ -895,10 +903,10 @@ int repro_mamba2_ssd(
   p.x = x; p.dt = dt; p.a = static_cast<const float*>(a); p.bm = bm; p.cm = cm;
   p.h0 = static_cast<const float*>(h0);
   p.y = y; p.h_last = static_cast<float*>(h_last);
-  p.B = B; p.S = S; p.H = H; p.P = P;
+  p.B = B; p.S = S; p.H = H; p.P = P; p.G = G;
   p.x_sb = x_sb; p.x_ss = x_ss; p.x_sh = x_sh;
   p.dt_sb = dt_sb; p.dt_ss = dt_ss; p.dt_sh = dt_sh;
-  p.b_sb = b_sb; p.b_ss = b_ss; p.c_sb = c_sb; p.c_ss = c_ss;
+  p.b_sb = b_sb; p.b_ss = b_ss; p.b_sg = b_sg; p.c_sb = c_sb; p.c_ss = c_ss; p.c_sg = c_sg;
   p.y_sb = y_sb; p.y_ss = y_ss; p.y_sh = y_sh;
   p.dt_bf16 = dt_dtype; p.out_bf16 = out_dtype; p.vec = vec;
   return launch_n(p, path, N, p_block, static_cast<cudaStream_t>(stream));

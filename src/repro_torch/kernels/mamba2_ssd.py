@@ -5,15 +5,20 @@ Counterpart of ``repro.kernels.mamba2_ssd``.  The kernel itself is
 kernel it replaces, what bounds it and what its two paths do about it).  Here:
 
 * :func:`mamba2_ssd` — the wrapper.  ``x (B, S, H, P)``, ``dt (B, S, H)``,
-  ``a (H,)``, ``bm`` / ``cm (B, S, N)`` in the model's layout, read through
-  their strides (``x``, ``bm`` and ``cm`` may be column slices of one wider
-  tensor, as the model's are); an optional initial state ``h0 (B, H, P, N)``;
-  any ``S >= 1``.  Returns ``y (B, S, H, P)`` in ``out_dtype`` (``x``'s dtype
-  unless asked for float32) and the last state ``h (B, H, P, N)`` in float32.
-  For a CUDA tensor it launches the kernel or raises; for a CPU tensor it runs
-  the plain version.  ``mamba2_ssd.launches`` counts kernel launches (a plain
-  integer, raised where the kernel is launched and nowhere else), one per call
-  whatever the path; ``mamba2_ssd.launches_by_path`` splits the same count;
+  ``a (H,)``, ``bm`` / ``cm (B, S, N)`` (one group, which every head reads)
+  or ``(B, S, G, N)`` (``G`` groups; head ``h`` reads group ``h * G // H``)
+  in the model's layout, read through their strides (``x``, ``bm`` and
+  ``cm`` may be column slices of one wider tensor, as the model's are); an
+  optional initial state ``h0 (B, H, P, N)``; any ``S >= 1``.  Returns
+  ``y (B, S, H, P)`` in ``out_dtype`` (``x``'s dtype unless asked for
+  float32) and the last state ``h (B, H, P, N)`` in float32.  One launch a
+  call whatever ``G``: a block reads its head's group.  For a CUDA tensor it
+  launches the kernel or raises; for a CPU tensor it runs the plain version.
+  ``mamba2_ssd.launches`` counts kernel launches (a plain integer, raised
+  where the kernel is launched and nowhere else), one per call whatever the
+  path; ``mamba2_ssd.launches_by_path`` splits the same count by path and
+  ``mamba2_ssd.launches_by_plan`` by path and ``p_block`` (keys
+  :func:`plan_key`);
 * :func:`ssd_plain` — the kernel's arithmetic in PyTorch, fp32 throughout:
   the quadratic dual form over chunks of :data:`CHUNK` rows with the state
   carried between chunks.  What the CPU tests run and what the kernel is held
@@ -67,6 +72,7 @@ _LAUNCH_ERRORS = {
     -3: "element type must be float32 or bfloat16",
     -4: "shape out of range (empty, or B or H above 65535)",
     -5: "the path does not take this element type",
+    -6: "the heads do not split into the B / C groups",
 }
 
 
@@ -84,6 +90,11 @@ class Plan:
     smem_bytes: int
     resident: int
     waves: int
+
+
+def plan_key(plan: "Plan") -> str:
+    """The key of ``mamba2_ssd.launches_by_plan``: ``"<path>.p<p_block>"``."""
+    return f"{plan.path}.p{plan.p_block}"
 
 
 def choose_path(dtype: torch.dtype) -> str:
@@ -118,14 +129,14 @@ def smem_bytes(n: int, p_block: int, path: str = "fma") -> int:
 #: occupancy that :func:`resident_blocks` counts from them is never above the
 #: card's
 REGISTERS = {
-    ("fma", 16, 16): 64, ("fma", 16, 32): 62, ("fma", 16, 64): 64,
-    ("fma", 32, 16): 52, ("fma", 32, 32): 57, ("fma", 32, 64): 64,
-    ("fma", 64, 16): 48, ("fma", 64, 32): 64, ("fma", 64, 64): 78,
-    ("fma", 128, 16): 60, ("fma", 128, 32): 63, ("fma", 128, 64): 128,
-    ("mma", 16, 16): 114, ("mma", 16, 32): 118, ("mma", 16, 64): 130,
-    ("mma", 32, 16): 114, ("mma", 32, 32): 124, ("mma", 32, 64): 175,
-    ("mma", 64, 16): 112, ("mma", 64, 32): 122, ("mma", 64, 64): 198,
-    ("mma", 128, 16): 157, ("mma", 128, 32): 186, ("mma", 128, 64): 212,
+    ("fma", 16, 16): 48, ("fma", 16, 32): 62, ("fma", 16, 64): 63,
+    ("fma", 32, 16): 63, ("fma", 32, 32): 59, ("fma", 32, 64): 64,
+    ("fma", 64, 16): 59, ("fma", 64, 32): 63, ("fma", 64, 64): 79,
+    ("fma", 128, 16): 58, ("fma", 128, 32): 64, ("fma", 128, 64): 128,
+    ("mma", 16, 16): 120, ("mma", 16, 32): 126, ("mma", 16, 64): 136,
+    ("mma", 32, 16): 118, ("mma", 32, 32): 128, ("mma", 32, 64): 181,
+    ("mma", 64, 16): 112, ("mma", 64, 32): 124, ("mma", 64, 64): 202,
+    ("mma", 128, 16): 162, ("mma", 128, 32): 190, ("mma", 128, 64): 216,
 }
 
 
@@ -185,19 +196,44 @@ def choose_plan(
 # ---------------------------------------------------------------------------
 
 
+def by_group(scan, x, dt, a, bm, cm, h0):
+    """``scan`` of ``G`` groups of B / C (``bm``, ``cm`` ``(B, S, G, N)``, or
+    ``(B, G, N)`` for one step) as ``G`` one-group calls
+    ``scan(x, dt, a, bm, cm, h0)``, each over the heads that read its group
+    (head ``h`` of ``H`` reads group ``h * G // H``: the ``H / G`` heads of a
+    group are contiguous), put back together by head."""
+    G, H = bm.shape[-2], x.shape[2] if x.dim() == 4 else x.shape[1]
+    if H % G:
+        raise ValueError(f"{H} SSM heads do not split into {G} B / C groups")
+    hg, outs = H // G, []
+    for g in range(G):
+        heads = slice(g * hg, (g + 1) * hg)
+        xs = x[:, :, heads] if x.dim() == 4 else x[:, heads]
+        outs.append(scan(xs, dt[..., heads], a[heads], bm[..., g:g + 1, :], cm[..., g:g + 1, :],
+                         None if h0 is None else h0[:, heads]))
+    hd = 2 if x.dim() == 4 else 1
+    return torch.cat([o[0] for o in outs], dim=hd), torch.cat([o[1] for o in outs], dim=1)
+
+
 def ssd_plain(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H)
     a: torch.Tensor,    # (H,)
-    bm: torch.Tensor,   # (B, S, N)
-    cm: torch.Tensor,   # (B, S, N)
+    bm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
+    cm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
     h0: Optional[torch.Tensor] = None,      # (B, H, P, N)
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic: per chunk of ``CHUNK`` rows (the last one
     short), ``da_cum = cumsum(dt a)``, ``y = ((C Bᵀ) ∘ L ∘ dt) x +
     exp(da_cum) ∘ (C hᵀ)``, ``h ← exp(da_total) h + Bᵀ (dt exp(da_total −
-    da_cum) x)``; fp32 throughout, ``y`` rounded once at the end."""
+    da_cum) x)``; fp32 throughout, ``y`` rounded once at the end.  With
+    ``G`` groups, the heads of each group against its ``B`` / ``C``, as the
+    kernel's blocks read them."""
+    if bm.dim() == 4:
+        if bm.shape[2] > 1:
+            return by_group(lambda *t: ssd_plain(*t, out_dtype), x, dt, a, bm, cm, h0)
+        bm, cm = bm[:, :, 0], cm[:, :, 0]
     B, S, H, P = x.shape
     out_dtype = out_dtype or x.dtype
     af = a.float()
@@ -243,18 +279,22 @@ def _kernel_fn():
 
         fn = _build.load().repro_mamba2_ssd
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [ptr] * 8 + [i32] * 5 + [i64] * 13 + [i32] * 6 + [ptr]
+        fn.argtypes = [ptr] * 8 + [i32] * 6 + [i64] * 15 + [i32] * 6 + [ptr]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 def _check(x, dt, a, bm, cm, h0, out_dtype) -> None:
-    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or bm.dim() != 3 or cm.dim() != 3:
-        raise ValueError("mamba2_ssd takes x (B,S,H,P), dt (B,S,H), a (H,), bm / cm (B,S,N)")
+    if (x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or bm.dim() not in (3, 4)
+            or cm.dim() != bm.dim()):
+        raise ValueError("mamba2_ssd takes x (B,S,H,P), dt (B,S,H), a (H,), "
+                         "bm / cm (B,S,N) or (B,S,G,N)")
     B, S, H, P = x.shape
     N = bm.shape[-1]
-    if dt.shape != (B, S, H) or a.shape != (H,) or bm.shape != (B, S, N) or cm.shape != bm.shape:
+    G = bm.shape[2] if bm.dim() == 4 else 1
+    if (dt.shape != (B, S, H) or a.shape != (H,) or bm.shape[:2] != (B, S)
+            or cm.shape != bm.shape or G < 1 or H % G):
         raise ValueError(
             f"shapes do not agree: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
             f"bm {tuple(bm.shape)}, cm {tuple(cm.shape)}"
@@ -293,8 +333,8 @@ def mamba2_ssd(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H)  post-softplus
     a: torch.Tensor,    # (H,)       negative
-    bm: torch.Tensor,   # (B, S, N)
-    cm: torch.Tensor,   # (B, S, N)
+    bm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
+    cm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
     h0: Optional[torch.Tensor] = None,       # (B, H, P, N) float32
     p_block: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
@@ -315,6 +355,9 @@ def mamba2_ssd(
     plan = choose_plan(B, H, P, N, x.dtype, p_block)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a, bm, cm, h0, out_dtype)
+    if bm.dim() == 3:   # one group: a group axis of one, whose stride no block reads
+        bm, cm = bm[:, :, None], cm[:, :, None]
+    G = bm.shape[2]
     if x.device.type != "cuda":
         raise RuntimeError(f"mamba2_ssd runs on cuda or cpu tensors, not {x.device}")
 
@@ -335,10 +378,10 @@ def mamba2_ssd(
         rc = fn(
             x.data_ptr(), dt.data_ptr(), a32.data_ptr(), bm.data_ptr(), cm.data_ptr(),
             None if h0c is None else h0c.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-            B, S, H, P, N,
+            B, S, H, P, N, G,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
-            bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
+            bm.stride(0), bm.stride(1), bm.stride(2), cm.stride(0), cm.stride(1), cm.stride(2),
             y.stride(0), y.stride(1), y.stride(2),
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype], _DTYPE_CODE[out_dtype], plan.p_block,
             _PATH_CODE[plan.path], vec, stream,
@@ -351,8 +394,11 @@ def mamba2_ssd(
         )
     mamba2_ssd.launches += 1
     mamba2_ssd.launches_by_path[plan.path] += 1
+    key = plan_key(plan)
+    mamba2_ssd.launches_by_plan[key] = mamba2_ssd.launches_by_plan.get(key, 0) + 1
     return y, h_last
 
 
 mamba2_ssd.launches = 0
 mamba2_ssd.launches_by_path = {p: 0 for p in PATHS}
+mamba2_ssd.launches_by_plan = {}

@@ -10,7 +10,8 @@ copies nothing.  ``window`` / ``chunk_attn`` are runtime values (``None`` or
 the kernel.
 
 ``mamba2_ssd`` takes ``x (B, S, H, P)``, ``dt (B, S, H)``, ``a (H,)`` and
-``bm`` / ``cm (B, S, N)`` as the reference's does, plus what the model's path
+``bm`` / ``cm (B, S, N)`` as the reference's does (or ``(B, S, G, N)``: ``G``
+groups), plus what the model's path
 needs and the reference kernel lacks: any ``S``, an initial state ``h0``, and
 ``y`` in float32 (``out_dtype``).  The reference's ``chunk`` has no
 counterpart (the kernel's chunk is its own, and the result does not depend on
@@ -40,11 +41,13 @@ def flash_attention(
     chunk_attn: Optional[int] = None,
     block_q: Optional[int] = None,
     block_kv: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Model-layout flash attention with the running state kept on chip."""
+    """Model-layout flash attention with the running state kept on chip;
+    ``scale`` of the scores, ``1 / sqrt(Dh)`` unless given."""
     return fa.flash_attention(
         q, k, v, q_positions, kv_positions,
-        window=window, chunk=chunk_attn, block_q=block_q, block_kv=block_kv,
+        window=window, chunk=chunk_attn, block_q=block_q, block_kv=block_kv, scale=scale,
     )
 
 
@@ -52,8 +55,8 @@ def mamba2_ssd(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H)
     a: torch.Tensor,    # (H,)
-    bm: torch.Tensor,   # (B, S, N)
-    cm: torch.Tensor,   # (B, S, N)
+    bm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
+    cm: torch.Tensor,   # (B, S, N) or (B, S, G, N)
     h0: Optional[torch.Tensor] = None,   # (B, H, P, N) float32
     p_block: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,

@@ -5,7 +5,9 @@ Counterpart of ``repro.models``: ``Model`` dispatches on
 
 * ``dense`` / ``moe`` / ``vlm`` -> :mod:`repro_torch.models.transformer`
 * ``ssm``    -> a pure Mamba2 stack (:mod:`repro_torch.models.mamba2`)
-* ``hybrid`` -> :mod:`repro_torch.models.hybrid` (Zamba2)
+* ``hybrid`` -> :mod:`repro_torch.models.hybrid` (the reference's Zamba2-style hybrid)
+* ``zamba2`` -> :mod:`repro_torch.models.zamba2` (the published Zamba2 block;
+  port-only, serving only)
 * ``audio``  -> :mod:`repro_torch.models.encdec` (Whisper)
 
 ``Model`` is an ``nn.Module`` that owns the layer-stacked parameters under the
@@ -43,16 +45,16 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..sharding import WHOLE, ModelAxis, Product
-from . import common, encdec, hybrid, mamba2, transformer
+from . import common, encdec, hybrid, mamba2, transformer, zamba2
 from .common import check_remat, rms_norm
-from .transformer import BIG, ModelConfig, MoEConfig
+from .transformer import BIG, ModelConfig, MoEConfig, Zamba2Config
 
-__all__ = ["Model", "ModelConfig", "MoEConfig", "BIG", "param_shapes", "param_dtypes",
+__all__ = ["Model", "ModelConfig", "MoEConfig", "Zamba2Config", "BIG", "param_shapes", "param_dtypes",
            "param_axes", "split_products"]
 
 State = Dict[str, Any]
 
-PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "zamba2")
 #: what the transformer path serves
 _TRANSFORMER = ("dense", "moe", "vlm")
 
@@ -70,6 +72,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         return transformer.param_shapes(cfg)
     if cfg.family == "hybrid":
         return hybrid.param_shapes(cfg)
+    if cfg.family == "zamba2":
+        return zamba2.param_shapes(cfg)
     if cfg.family == "audio":
         return encdec.param_shapes(cfg)
     layer = mamba2.layer_shapes(cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
@@ -89,6 +93,8 @@ def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
         return transformer.param_axes(cfg)
     if cfg.family == "hybrid":
         return hybrid.param_axes(cfg)
+    if cfg.family == "zamba2":
+        return zamba2.param_axes(cfg)
     if cfg.family == "audio":
         return encdec.param_axes(cfg)
     return {"embed": ("vocab", "embed_tbl"),
@@ -105,12 +111,15 @@ def split_products(cfg: ModelConfig) -> Dict[str, Product]:
     heads, its shared block's heads and ``ff``, and the vocabulary
     (:func:`hybrid.split_products`); whisper's heads (encoder, decoder and
     cross-attention alike), ``ff`` and vocabulary
-    (:func:`encdec.split_products`)."""
+    (:func:`encdec.split_products`).  The zamba2 family splits nothing and
+    raises (:func:`zamba2.split_products`)."""
     _require_ported(cfg)
     if cfg.family in _TRANSFORMER:
         return transformer.split_products(cfg)
     if cfg.family == "hybrid":
         return hybrid.split_products(cfg)
+    if cfg.family == "zamba2":
+        return zamba2.split_products(cfg)
     if cfg.family == "audio":
         return encdec.split_products(cfg)
     return {**mamba2.split_products(cfg), "vocab": Product({"embed": 0}, cfg.vocab)}
@@ -156,7 +165,11 @@ def whole_state(cfg: ModelConfig, key: str, x: torch.Tensor, plan: ModelAxis,
 def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
     """Flat ``name -> dtype``, the reference's: ``cfg.dtype`` for every
     parameter but a mamba layer's ``a_log`` / ``d_skip`` / ``dt_bias``, which
-    are float32 whatever the model's dtype."""
+    are float32 whatever the model's dtype.  The zamba2 family holds every
+    leaf in ``cfg.dtype``, as the published checkpoint does (the scan reads
+    those three in float32 all the same)."""
+    if cfg.family == "zamba2":
+        return {name: cfg.dtype for name in param_shapes(cfg)}
     return {
         name: mamba2.leaf_dtype(name.rsplit(".", 1)[-1], cfg.dtype)
         if name.startswith("mamba.") else cfg.dtype
@@ -220,6 +233,8 @@ class Model(nn.Module):
             transformer.fill_params(cfg, params, generator)
         elif cfg.family == "hybrid":
             hybrid.fill_params(cfg, params, generator)
+        elif cfg.family == "zamba2":
+            zamba2.fill_params(cfg, params, generator)
         elif cfg.family == "audio":
             encdec.fill_params(cfg, params, generator)
         else:
@@ -301,6 +316,10 @@ class Model(nn.Module):
         forward only and raise."""
         cfg, params = self.cfg, self.params
         tokens, targets = batch["tokens"], batch["targets"]
+        if cfg.family == "zamba2":
+            raise NotImplementedError(
+                f"{cfg.name}: the zamba2 family serves only; training waits for a backward of "
+                "the SSD kernel (ROADMAP E3)")
         if cfg.family in _TRANSFORMER:
             h, _ = transformer.forward(
                 cfg, params, tokens, attn_impl=self.attn_impl, remat=self.remat,
@@ -370,7 +389,7 @@ class Model(nn.Module):
                                 self._plan)
             kv = self._kv(cfg.n_layers, B, max_len)
             return enc, {"kv": kv, "enc": enc, "pos": torch.zeros_like(pos)}
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "zamba2"):
             ssm, conv = ((out["ssm"], out["conv"]) if out is not None
                          else mamba2.init_states(cfg, B, self.device, self._plan))
         if cfg.family == "ssm":
@@ -382,6 +401,15 @@ class Model(nn.Module):
                 kv_caches=out["kv"] if out is not None else self._hybrid_kv(B, max_len),
                 cache_positions=self._cache_positions(B, max_len),
                 ssm_states=ssm, conv_states=conv, tp=self._plan, check_room=check_room,
+            )
+            return h, {**state, "pos": pos}
+        if cfg.family == "zamba2":
+            h, state = zamba2.forward(
+                cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
+                kv_caches=(out["kv"] if out is not None
+                           else self._kv(zamba2.applications(cfg), B, max_len)),
+                cache_positions=self._cache_positions(B, max_len),
+                ssm_states=ssm, conv_states=conv, check_room=check_room,
             )
             return h, {**state, "pos": pos}
         k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
@@ -432,6 +460,14 @@ class Model(nn.Module):
                 conv_states=state["conv"], decode=True, tp=self._plan, check_room=check_room,
             )
             return h, {**new, "pos": pos}
+        if cfg.family == "zamba2":
+            h, new = zamba2.forward(
+                cfg, self.params, tokens, positions=state["pos"][:, None],
+                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
+                cache_positions=cache_pos, ssm_states=state["ssm"], conv_states=state["conv"],
+                decode=True, check_room=check_room,
+            )
+            return h, {**new, "pos": pos}
         h, kv = transformer.forward(
             cfg, self.params, tokens, positions=state["pos"][:, None],
             attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos, tp=self._plan,
@@ -442,7 +478,7 @@ class Model(nn.Module):
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         """The logits this rank computes: its block of the vocabulary where
         the plan splits it (``lm_head``, or ``embed.T`` where tied: the ssm,
-        hybrid and audio families tie theirs)."""
+        hybrid, zamba2 and audio families tie theirs)."""
         if self.cfg.family in _TRANSFORMER:
             return transformer.lm_head(self.cfg, self.params, h)
         return h @ self.params["embed"].T.to(h.dtype)

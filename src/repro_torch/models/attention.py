@@ -144,12 +144,15 @@ def attention(
     window: Optional[int] = None,
     chunk_attn: Optional[int] = None,
     kv_chunk: int = DEFAULT_CHUNK,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Unified entry point used by every architecture."""
+    """Unified entry point used by every architecture.  ``scale`` of the
+    scores: ``1 / sqrt(Dh)`` unless given (Zamba2's shared blocks give
+    ``(Dh / 2) ** -0.5``)."""
     if impl == "chunked":
         return attention_chunked(
             q, k, v, q_positions, kv_positions,
-            window=window, chunk_attn=chunk_attn, kv_chunk=kv_chunk,
+            window=window, chunk_attn=chunk_attn, kv_chunk=kv_chunk, scale=scale,
         )
     if k.dtype != q.dtype:
         # a float32 model attends over the bfloat16 cache: promote, as the
@@ -159,9 +162,9 @@ def attention(
         from ..kernels import ops as kernel_ops
 
         return kernel_ops.flash_attention(
-            q, k, v, q_positions, kv_positions, window=window, chunk_attn=chunk_attn
+            q, k, v, q_positions, kv_positions, window=window, chunk_attn=chunk_attn, scale=scale
         )
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}: xla, chunked or hopper")
     bias = causal_mask_bias(q_positions, kv_positions, window=window, chunk=chunk_attn)
-    return attention_xla(q, k, v, bias=bias)
+    return attention_xla(q, k, v, bias=bias, scale=scale)

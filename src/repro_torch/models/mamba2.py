@@ -15,6 +15,11 @@ prompt through one of two interchangeable paths:
 Decode is the O(1) recurrent update ``h = dA h + dt B x; y = C h`` in plain
 PyTorch (:func:`ssd_decode_step`): the reference has no kernel for it.
 
+``B`` and ``C`` come in ``G`` groups (``groups``; one in the reference's
+models, two in Zamba2-7B): head ``h`` of ``H`` reads group ``h * G // H``,
+and the gated norm normalises each group's channels on their own.  At one
+group every path computes exactly what it did before groups existed.
+
 On a mesh whose ``model`` axis is wider than 1, a layer is split by SSM
 heads (:func:`split_products`): a rank computes its heads' ``z``, ``x`` and
 ``dt`` columns of ``in_proj``, and ``B`` / ``C`` whole (one group, which
@@ -31,11 +36,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.mamba2_ssd import by_group
 from ..sharding import WHOLE, ModelAxis, Product, Segments
 from .common import layer_params, rms_norm, trunc_normal_
 
 D_CONV = 4  # depthwise causal conv width (mamba2 default)
-N_GROUPS = 1
 
 #: the parameters a mamba layer keeps in float32 whatever the model's dtype
 FP32_LEAVES = ("a_log", "d_skip", "dt_bias")
@@ -48,19 +53,20 @@ SSD_IMPLS = ("chunked", "hopper")
 # ---------------------------------------------------------------------------
 
 
-def mamba_dims(d_model: int, ssm_heads: int, ssm_head_dim: int, d_state: int) -> Tuple[int, int]:
+def mamba_dims(d_model: int, ssm_heads: int, ssm_head_dim: int, d_state: int,
+               groups: int = 1) -> Tuple[int, int]:
     d_inner = ssm_heads * ssm_head_dim
-    conv_dim = d_inner + 2 * N_GROUPS * d_state
+    conv_dim = d_inner + 2 * groups * d_state
     return d_inner, conv_dim
 
 
 def layer_shapes(
-    d_model: int, ssm_heads: int, ssm_head_dim: int, d_state: int
+    d_model: int, ssm_heads: int, ssm_head_dim: int, d_state: int, groups: int = 1,
 ) -> Dict[str, Tuple[int, ...]]:
     """``name -> shape`` of one layer's parameters (the reference's keys)."""
     H, P, N = ssm_heads, ssm_head_dim, d_state
-    d_inner, conv_dim = mamba_dims(d_model, H, P, N)
-    proj_out = 2 * d_inner + 2 * N_GROUPS * N + H  # z, x, B, C, dt
+    d_inner, conv_dim = mamba_dims(d_model, H, P, N, groups)
+    proj_out = 2 * d_inner + 2 * groups * N + H  # z, x, B, C, dt
     return {
         "in_proj": (d_model, proj_out),
         "conv_w": (D_CONV, conv_dim),
@@ -98,7 +104,7 @@ def split_products(cfg, prefix: str = "mamba.") -> Dict[str, Product]:
     ``conv_b`` (``x | B | C``), its heads of ``a_log`` / ``d_skip`` /
     ``dt_bias`` (which the rules replicate), and its blocks of ``norm`` and
     ``out_proj`` as they lie."""
-    P, BC = cfg.ssm_head_dim, 2 * N_GROUPS * cfg.ssm_state
+    P, BC = cfg.ssm_head_dim, 2 * cfg.ssm_groups * cfg.ssm_state
     proj = ((P, True), (P, True), (BC, False), (1, True))    # z | x | B C | dt
     conv = ((P, True), (BC, False))                          # x | B C
     head = ((1, True),)
@@ -164,7 +170,10 @@ def ssd_chunked(
     """Returns (y (B,S,H,P) float32, final state (B,H,P,N) float32).  The
     reference's algorithm: the tail is zero-padded to a whole chunk, every
     chunk's state is computed at once and the inter-chunk recurrence is a
-    loop over chunks (the reference's ``scan``)."""
+    loop over chunks (the reference's ``scan``).  With ``G`` groups each
+    group's heads are scanned on their own (:func:`~repro_torch.kernels.mamba2_ssd.by_group`)."""
+    if bm.shape[2] > 1:
+        return by_group(lambda *t: ssd_chunked(*t[:5], chunk, t[5]), x, dt, a, bm, cm, h0)
     B, S, H, P = x.shape
     N = bm.shape[-1]
     nc = -(-S // chunk)
@@ -178,8 +187,8 @@ def ssd_chunked(
     Q = chunk
     xf = x.float().reshape(B, nc, Q, H, P)
     dtf = dt.float().reshape(B, nc, Q, H)
-    bf = bm.float().reshape(B, nc, Q, N_GROUPS, N)[..., 0, :]  # (B,nc,Q,N)
-    cf = cm.float().reshape(B, nc, Q, N_GROUPS, N)[..., 0, :]
+    bf = bm.float().reshape(B, nc, Q, N)  # one group
+    cf = cm.float().reshape(B, nc, Q, N)
 
     da = dtf * a.float()[None, None, None, :]  # (B, nc, Q, H) — negative
     da_cum = torch.cumsum(da, dim=2)           # within chunk
@@ -220,10 +229,16 @@ def ssd_decode_step(
     x: torch.Tensor,   # (B, H, P)
     dt: torch.Tensor,  # (B, H)
     a: torch.Tensor,   # (H,)
-    bm: torch.Tensor,  # (B, N)
-    cm: torch.Tensor,  # (B, N)
+    bm: torch.Tensor,  # (B, N), or (B, G, N)
+    cm: torch.Tensor,  # (B, N), or (B, G, N)
     h: torch.Tensor,   # (B, H, P, N) fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token against the state.  ``bm`` / ``cm`` ``(B, N)`` are the one
+    group every head reads; ``(B, G, N)`` ``G`` groups (``by_group``)."""
+    if bm.dim() == 3:
+        if bm.shape[1] > 1:
+            return by_group(ssd_decode_step, x, dt, a, bm, cm, h)
+        bm, cm = bm[:, 0], cm[:, 0]
     dtf = dt.float()
     da = torch.exp(dtf * a.float()[None, :])  # (B, H)
     dbx = (dtf[:, :, None] * bm.float()[:, None, :])[:, :, None, :] * x.float()[..., None]
@@ -250,14 +265,19 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, width: int,
-                tp: ModelAxis) -> torch.Tensor:
-    """``rms_norm(y * silu(z), scale)`` over all ``width`` channels; where
-    ``tp`` splits the heads, ``y`` holds a rank's channels and their sum of
-    squares is summed over the axis."""
+                tp: ModelAxis, groups: int = 1, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(y * silu(z), scale)`` over all ``width`` channels, or over
+    each of ``groups`` equal runs of them on its own; where ``tp`` splits the
+    heads, ``y`` holds a rank's channels and their sum of squares is summed
+    over the axis."""
     g = y * F.silu(z.float()).to(y.dtype)
+    if groups > 1:
+        shape = g.shape
+        return rms_norm(g.reshape(*shape[:-1], groups, -1), scale.reshape(groups, -1),
+                        eps).reshape(shape)
     if not tp.splits("ssm_heads"):
-        return rms_norm(g, scale)
-    return rms_norm(g, scale, mean=lambda sq: tp.all_sum(
+        return rms_norm(g, scale, eps)
+    return rms_norm(g, scale, eps, mean=lambda sq: tp.all_sum(
         sq.sum(dim=-1, keepdim=True), "ssm_heads") / width)
 
 
@@ -273,8 +293,17 @@ def mamba_layer(
     decode: bool = False,
     ssd_impl: str = "chunked",
     tp: ModelAxis = WHOLE,
+    groups: int = 1,
+    eps: float = 1e-6,
+    pre_add: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Returns (h_out, new_ssm_state, new_conv_state).
+
+    ``groups`` B / C groups (the split of ``in_proj``'s ``B`` / ``C`` columns
+    and of the conv's channels, the scan's head-to-group map, the gated norm
+    a group at a time); ``eps`` of both norms; ``pre_add`` (Zamba2's shared
+    block output) is added to ``h`` before the input norm, the residual being
+    ``h`` itself.
 
     Prefill (``decode=False``) starts from ``ssm_state`` (zeros if ``None``)
     and scans the prompt through ``ssd_impl``; the new conv state is the last
@@ -290,12 +319,15 @@ def mamba_layer(
     if ssd_impl not in SSD_IMPLS:
         raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
     B, S, D = h.shape
+    if groups > 1 and tp.splits("ssm_heads"):
+        raise NotImplementedError("a mamba layer of more than one B / C group does not split "
+                                  "its SSM heads over the model axis")
     h0, h1 = tp.range("ssm_heads", ssm_heads)
-    H, P, N = h1 - h0, ssm_head_dim, d_state
-    d_inner, conv_dim = mamba_dims(D, H, P, N)
+    H, P, N, G = h1 - h0, ssm_head_dim, d_state, groups
+    d_inner, conv_dim = mamba_dims(D, H, P, N, G)
 
     res = h
-    x = rms_norm(h, lp["ln"])
+    x = rms_norm(h if pre_add is None else h + pre_add, lp["ln"], eps)
     proj = tp.enter(x, "ssm_heads") @ lp["in_proj"]  # (B, S, 2*d_inner + 2N + H)
     z, xbc, dt_raw = torch.split(proj, [d_inner, conv_dim, H], dim=-1)
 
@@ -310,8 +342,10 @@ def mamba_layer(
     xbc_c = F.silu(xbc_c)
 
     # column slices of xbc_c, no copy: the kernel reads them through strides
-    xs, bm, cm = torch.split(xbc_c, [d_inner, N_GROUPS * N, N_GROUPS * N], dim=-1)
+    xs, bm, cm = torch.split(xbc_c, [d_inner, G * N, G * N], dim=-1)
     xs = xs.reshape(B, -1, H, P)
+    if G > 1:   # (B, S, G, N) views: the kernel reads a group through its stride
+        bm, cm = bm.unflatten(-1, (G, N)), cm.unflatten(-1, (G, N))
     dt = F.softplus(dt_raw.float() + lp["dt_bias"].float())
     a = -torch.exp(lp["a_log"].float())  # (H,) negative
 
@@ -328,13 +362,13 @@ def mamba_layer(
         )
     else:
         y, new_state = ssd_chunked(
-            xs, dt, a, bm.reshape(B, -1, N_GROUPS, N), cm.reshape(B, -1, N_GROUPS, N),
+            xs, dt, a, bm.reshape(B, -1, G, N), cm.reshape(B, -1, G, N),
             chunk=chunk, h0=ssm_state,
         )
 
     y = y + xs.float() * lp["d_skip"].float()[None, None, :, None]
     y = y.reshape(B, -1, d_inner).to(h.dtype)
-    y = _gated_norm(y, z, lp["norm"], ssm_heads * P, tp)
+    y = _gated_norm(y, z, lp["norm"], ssm_heads * P, tp, G, eps)
     out = res + tp.leave(y @ lp["out_proj"], "ssm_heads").to(h.dtype)
     return out, new_state, new_conv_state
 
@@ -352,7 +386,8 @@ def init_states(
     reference); under ``tp`` a rank's: its heads, its conv channels (its
     heads' ``x`` and all of ``B`` / ``C``, :func:`rank_conv`)."""
     h0, h1 = tp.range("ssm_heads", cfg.ssm_heads)
-    _, conv_dim = mamba_dims(cfg.d_model, h1 - h0, cfg.ssm_head_dim, cfg.ssm_state)
+    _, conv_dim = mamba_dims(cfg.d_model, h1 - h0, cfg.ssm_head_dim, cfg.ssm_state,
+                             cfg.ssm_groups)
     L = cfg.n_layers
     ssm = torch.zeros((L, batch, h1 - h0, cfg.ssm_head_dim, cfg.ssm_state),
                       dtype=torch.float32, device=device)
@@ -376,7 +411,7 @@ def whole_conv(cfg, conv: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
     together in rank order (gathered over the axis), then ``B`` / ``C``."""
     if not tp.splits("ssm_heads"):
         return conv
-    bc = 2 * N_GROUPS * cfg.ssm_state
+    bc = 2 * cfg.ssm_groups * cfg.ssm_state
     x, rest = conv.split([conv.shape[-1] - bc, bc], dim=-1)
     return torch.cat([tp.gather(x, "ssm_heads"), rest], dim=-1)
 

@@ -63,6 +63,23 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class Zamba2Config:
+    """The published Zamba2 block's knobs (``transformers``' ``Zamba2Config``
+    names in brackets), carried as one group as ``moe`` is: the model layers
+    that first apply a shared block (``hybrid_layer_ids``), how many shared
+    blocks they take in turn (``num_mem_blocks``), the rank of each
+    application's LoRA adapter on the MLP's ``gate_up`` (``adapter_rank``),
+    the B / C groups of every mamba layer (``mamba_ngroups``) and the MLP's
+    activation (``hidden_act``).  Port-only: the reference has no such family."""
+
+    hybrid_layer_ids: Tuple[int, ...]
+    mem_blocks: int = 2
+    adapter_rank: int = 128
+    ssm_groups: int = 1
+    activation: str = "gelu"
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | vlm | audio | ssm | hybrid
@@ -93,6 +110,8 @@ class ModelConfig:
     attn_period: int = 0
     dtype: torch.dtype = torch.bfloat16
     notes: str = ""
+    # the zamba2 family's group (port-only; every other config leaves it None)
+    zamba2: Optional[Zamba2Config] = None
 
     @property
     def dh(self) -> int:
@@ -100,11 +119,20 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def ssm_groups(self) -> int:
+        """The B / C groups of a mamba layer: the zamba2 group's, else one."""
+        return self.zamba2.ssm_groups if self.zamba2 is not None else 1
+
     def layer_kinds(self) -> Tuple[int, ...]:
         """0 = local/chunked layer, 1 = global layer."""
         if self.global_period <= 1:
             return (1,) * self.n_layers
         return tuple(int((i + 1) % self.global_period == 0) for i in range(self.n_layers))
+
+
+#: the port's fields that the reference's ``ModelConfig`` does not have
+PORT_ONLY_FIELDS = ("zamba2",)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,13 @@ captured step (a span there would run once, at capture): ``serve`` (a call),
 written into one slot, or broadcast into all) and ``graph.capture`` (a
 :class:`StepGraph` capture).  Its counters: ``serve.prefill_tokens`` (prompt
 tokens prefilled), ``serve.decode_rows`` (the rows the decode steps
-computed) and ``serve.busy_rows`` (those of them that held a request).
+computed), ``serve.busy_rows`` (those of them that held a request), and
+for the families with mamba layers ``serve.ssd_scan_tokens`` (prompt
+tokens times mamba layers: the rows the prefills' SSD scans walked) and
+``ssd.launches.<path>.p<p_block>`` (the SSD kernel's launches of the
+prefills by plan, from its wrapper's ``launches_by_plan``, which a replayed
+graph keeps true).  All are ticked on the host, so they hold whether a
+prefill ran eagerly or as a graph.
 While a torch profiler records, each span is also a range on its trace.
 """
 
@@ -77,6 +83,9 @@ State = Dict[str, Any]
 KERNEL_WRAPPERS = (flash_attention, mamba2_ssd)
 #: per wrapper of ``KERNEL_WRAPPERS``: its launches and its launches by path
 Launches = Tuple[Tuple[int, Dict[str, int]], ...]
+#: the families whose every layer is a mamba layer (the hybrid's and
+#: zamba2's shared blocks come beside them)
+MAMBA_FAMILIES = ("ssm", "hybrid", "zamba2")
 
 
 def launch_counts() -> Launches:
@@ -88,12 +97,25 @@ def launches_since(before: Launches) -> Launches:
                  for (n, paths), (n0, paths0) in zip(launch_counts(), before))
 
 
-def add_launches(launches: Launches, times: int) -> None:
-    """Adds ``times`` x ``launches`` to the wrappers' counters."""
+def plan_counts() -> Dict[str, int]:
+    """The SSD kernel's launches by plan (``mamba2_ssd.launches_by_plan``)."""
+    return dict(mamba2_ssd.launches_by_plan)
+
+
+def plans_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before.get(k, 0) for k, n in plan_counts().items() if n != before.get(k, 0)}
+
+
+def add_launches(launches: Launches, times: int, plans: Optional[Dict[str, int]] = None) -> None:
+    """Adds ``times`` x ``launches`` to the wrappers' counters, and ``times``
+    x ``plans`` to the SSD kernel's launches by plan."""
     for w, (n, paths) in zip(KERNEL_WRAPPERS, launches):
         w.launches += times * n
         for p, c in paths.items():
             w.launches_by_path[p] += times * c
+    by_plan = mamba2_ssd.launches_by_plan
+    for k, c in (plans or {}).items():
+        by_plan[k] = by_plan.get(k, 0) + times * c
 
 
 class StepGraph:
@@ -124,6 +146,7 @@ class StepGraph:
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[Launches] = None    # what one replay launches
+        self.plans: Dict[str, int] = {}              # its SSD launches by plan
         self.replays = 0
         self.capture_seconds: Optional[float] = None
         self.pool_bytes: Optional[int] = None
@@ -140,15 +163,15 @@ class StepGraph:
 
     def capture(self, step: Callable[[], Any]) -> Any:
         with obs.span("graph.capture"):
-            before = launch_counts()
+            before, plans = launch_counts(), plan_counts()
             out = self._record(step)
-            self.launches = launches_since(before)
-            add_launches(self.launches, -1)
+            self.launches, self.plans = launches_since(before), plans_since(plans)
+            add_launches(self.launches, -1, self.plans)
         return out
 
     def replay(self) -> None:
         self._replay()
-        add_launches(self.launches, 1)
+        add_launches(self.launches, 1, self.plans)
         self.replays += 1
 
     def _record(self, step: Callable[[], Any]) -> Any:
@@ -272,12 +295,19 @@ class Server:
         """The logits and one-sequence state of the prompt ``tokens (1, L)``.
         A graph cannot raise, so a prompt longer than the cache raises here,
         on the host, before anything runs."""
-        if self.model.cfg.family != "ssm":      # the families with a KV cache
+        cfg = self.model.cfg
+        if cfg.family != "ssm":      # the families with a KV cache
             check_room(0, 0, tokens.shape[1], self.cfg.max_len)
+        plans = plan_counts() if obs.enabled() else None
         with obs.span("serve.prefill"):
             out = self._graph_prefill(tokens) if self.cuda_graph else self._prefill_step(tokens)
-        if obs.enabled():
-            obs.metrics().counter("serve.prefill_tokens").inc(tokens.shape[1])
+        if plans is not None:
+            reg = obs.metrics()
+            reg.counter("serve.prefill_tokens").inc(tokens.shape[1])
+            if cfg.family in MAMBA_FAMILIES:
+                reg.counter("serve.ssd_scan_tokens").inc(tokens.shape[1] * cfg.n_layers)
+            for key, n in plans_since(plans).items():
+                reg.counter(f"ssd.launches.{key}").inc(n)
         return out
 
     def _prefill_step(self, tokens: torch.Tensor, out: Optional[State] = None):

@@ -36,6 +36,7 @@ import repro_torch.configs as tconfigs
 from repro.data import DataConfig as JDataConfig
 from repro.data import SyntheticLM as JSyntheticLM
 from repro.models import Model as JModel
+from repro_torch.models.transformer import PORT_ONLY_FIELDS
 from repro_torch import convert
 from repro_torch.data import SyntheticLM
 from repro_torch.runtime import Trainer
@@ -190,7 +191,10 @@ def test_train_100m_model_equals_the_references_field_for_field():
     tcfg = runpy.run_path(str(ROOT / "examples" / "torch_train_100m.py"),
                           run_name="port")["model_100m"]()
     names = [f.name for f in dataclasses.fields(jcfg)]
-    assert names == [f.name for f in dataclasses.fields(tcfg)]
+    # the port's own fields (none in the reference) stay at their default
+    assert names == [f.name for f in dataclasses.fields(tcfg)
+                     if f.name not in PORT_ONLY_FIELDS]
+    assert all(getattr(tcfg, f) is None for f in PORT_ONLY_FIELDS)
     for name in names:
         if name == "dtype":
             assert str(tcfg.dtype) == f"torch.{jnp.dtype(jcfg.dtype).name}"

@@ -421,3 +421,109 @@ def test_model_step_gap_refuses_a_float8_control_on_the_card():
     control, loop, launched = _model_step_gaps(control=True)
     assert not any(launched.values())
     assert control > TRAIN_STEP_GAP_RATIO * loop, (control, loop)
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-7B's shapes: two B / C groups, heads of 224 with their own scale
+# ---------------------------------------------------------------------------
+
+#: (H, P, N, G) of Zamba2-7B's mamba layers
+ZAMBA2_7B_SSD = (112, 64, 64, 2)
+
+
+def _norm_gap(got, want):
+    """The relative norm of the difference: what a float8 control must fail."""
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _fp8(t):
+    return t.to(torch.float8_e4m3fn).to(t.dtype)
+
+
+def _grouped_ssd(S, H, P, N, G, seed=0):
+    """bf16 x, B and C cut from one ``(1, S, H P + 2 G N)`` tensor as the
+    model cuts them (B / C ``(1, S, G, N)`` views), fp32 dt and ``a``."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal((1, S, H * P + 2 * G * N), dtype=np.float32)
+                           * 0.5).cuda().bfloat16()
+    x = xbc[..., :H * P].reshape(1, S, H, P)
+    bm = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    cm = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((1, S, H), dtype=np.float32)).cuda())
+    a = -torch.linspace(1.0, 16.0, H, device="cuda")
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [300, 2048])
+def test_ssd_kernel_takes_two_groups_on_the_card(S):
+    """Zamba2-7B's layer at G = 2, one launch: against ``ssd_plain`` by the
+    norm gap (1e-3: the mma path keeps near-fp32 products; x rounded to
+    float8 fails it), and bit for bit against the kernel fed each head's
+    group expanded (G = H: the same blocks, the same arithmetic)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    H, P, N, G = ZAMBA2_7B_SSD
+    x, dt, a, bm, cm = _grouped_ssd(S, H, P, N, G, seed=S)
+    before = ssd.mamba2_ssd.launches_by_path["mma"]
+    y, h = ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ssd.mamba2_ssd.launches_by_path["mma"] == before + 1
+    want_y, want_h = ssd.ssd_plain(x, dt, a, bm, cm, out_dtype=torch.float32)
+    assert _norm_gap(y, want_y) < 1e-3 and _norm_gap(h, want_h) < 1e-3
+    ctrl_y, _ = ssd.ssd_plain(_fp8(x), dt, a, bm, cm, out_dtype=torch.float32)
+    assert _norm_gap(ctrl_y, want_y) > 1e-3
+    wide = [t.repeat_interleave(H // G, dim=2) for t in (bm, cm)]
+    y_h, h_h = ops.mamba2_ssd(x, dt, a, *wide, out_dtype=torch.float32)
+    assert torch.equal(y, y_h) and torch.equal(h, h_h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 64, 128), (80, 64, 64)])
+def test_ssd_kernel_one_group_axis_is_the_old_call_on_the_card(shape):
+    """mamba2_370m's and zamba2_2_7b's prefill (512 tokens): B / C as
+    ``(B, S, N)`` and as ``(B, S, 1, N)`` give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    H, P, N = shape
+    x, dt, a, bm, cm = _grouped_ssd(512, H, P, N, 1)
+    flat = ops.mamba2_ssd(x, dt, a, bm[:, :, 0], cm[:, :, 0], out_dtype=torch.float32)
+    axis = ops.mamba2_ssd(x, dt, a, bm, cm, out_dtype=torch.float32)
+    assert all(torch.equal(p, q) for p, q in zip(flat, axis))
+
+
+def test_choose_plan_at_zamba2_7b():
+    """One prompt of Zamba2-7B's layer: the mma path, 32 state rows a block,
+    224 blocks in one wave of two a block an SM (the table's registers)."""
+    H, P, N, _ = ZAMBA2_7B_SSD
+    plan = ssd.choose_plan(1, H, P, N, torch.bfloat16)
+    assert (plan.path, plan.p_block, plan.blocks, plan.waves) == ("mma", 32, 224, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["mma", "split"])
+def test_attention_at_head_width_224_with_its_scale_on_the_card(path):
+    """Zamba2-7B's shared-block attention, Dh 224 (the Dh-256 class) with the
+    scale ``(224 / 2) ** -0.5``: a 2,000-token prompt on ``mma``, a decode
+    row a slot of 24 slots against a 4,096-key cache on ``split``; against
+    the plain version of the same path by the norm gap (1e-2: bf16 output of
+    the same online softmax; q rounded to float8 fails it)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    scale = (224 / 2) ** -0.5
+    if path == "mma":
+        q, k, v, qpos, kpos = _attention_inputs(1, 2000, 2000, 32, 32, 224, torch.bfloat16)
+    else:
+        q, k, v, qpos, kpos = _attention_inputs(24, 1, 4096, 32, 32, 224, torch.bfloat16)
+        qpos = torch.arange(1000, 1000 + 24 * 120, 120, dtype=torch.int32,
+                            device="cuda")[:, None]
+    before = dict(fa.flash_attention.launches_by_path)
+    got = ops.flash_attention(q, k, v, qpos, kpos, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_path[path] == before[path] + 1
+    want = fa.flash_attention_plain(q, k, v, qpos, kpos, scale=scale)
+    unscaled = fa.flash_attention_plain(q, k, v, qpos, kpos)
+    assert _norm_gap(got, want) < 1e-2 < _norm_gap(unscaled, want)
+    ctrl = fa.flash_attention_plain(_fp8(q), k, v, qpos, kpos, scale=scale)
+    assert _norm_gap(ctrl, want) > 1e-2

@@ -24,6 +24,7 @@ import repro_torch.configs as tconfigs
 from repro.models import Model as JModel
 from repro.models import hybrid as jhybrid
 from repro.models import mamba2 as jmamba2
+from repro_torch.models.transformer import PORT_ONLY_FIELDS
 from repro_torch import convert
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.models import Model, hybrid, mamba2, param_dtypes, param_shapes
@@ -414,7 +415,10 @@ def test_configs_equal_the_reference_field_for_field(arch):
                          (tconfigs.reduced_config, jconfigs.reduced_config)):
         tcfg, jcfg = get_t(arch), get_j(arch)
         names = [f.name for f in dataclasses.fields(jcfg)]
-        assert names == [f.name for f in dataclasses.fields(tcfg)]
+        # the port's own fields (none in the reference) stay at their default
+        assert names == [f.name for f in dataclasses.fields(tcfg)
+                         if f.name not in PORT_ONLY_FIELDS]
+        assert all(getattr(tcfg, f) is None for f in PORT_ONLY_FIELDS)
         for name in names:
             if name == "dtype":
                 assert JDT[tcfg.dtype] == jcfg.dtype

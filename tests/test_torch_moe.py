@@ -24,6 +24,7 @@ import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
 from repro.models import transformer as jtransformer
 from repro.runtime.serving import Request as JRequest
+from repro_torch.models.transformer import PORT_ONLY_FIELDS
 from repro_torch import convert
 from repro_torch.models import Model, common, transformer
 from repro_torch.runtime import Request, ServeConfig, Server
@@ -349,7 +350,10 @@ def test_configs_equal_the_reference_field_for_field(arch):
                          (tconfigs.reduced_config, jconfigs.reduced_config)):
         tcfg, jcfg = get_t(arch), get_j(arch)
         names = [f.name for f in dataclasses.fields(jcfg)]
-        assert names == [f.name for f in dataclasses.fields(tcfg)]
+        # the port's own fields (none in the reference) stay at their default
+        assert names == [f.name for f in dataclasses.fields(tcfg)
+                         if f.name not in PORT_ONLY_FIELDS]
+        assert all(getattr(tcfg, f) is None for f in PORT_ONLY_FIELDS)
         for name in names:
             if name == "dtype":
                 assert JDT[tcfg.dtype] == jcfg.dtype

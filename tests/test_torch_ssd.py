@@ -351,3 +351,89 @@ def test_a_cuda_tensor_never_reaches_the_plain_version():
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         ssd.mamba2_ssd(x, dt, a, bm, cm)
     assert ssd.mamba2_ssd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# B / C groups: head h of H reads group h * G // H
+# ---------------------------------------------------------------------------
+
+#: float32 on both sides, the same sums over other batches of heads: they
+#: agree to a few ulps; a float8 rounding of B / C reads near 1e-2
+GROUP_TOL = 1e-5
+GROUP_CASES = [(2, 100, 8, 16, 16, 2), (1, 70, 6, 16, 32, 3), (1, 130, 4, 32, 16, 4)]
+
+
+def _grouped(B, S, H, P, N, G, seed=0):
+    x, dt, a, _, _ = (torch.from_numpy(v) for v in _inputs(B, S, H, P, N, seed))
+    rng = np.random.default_rng(seed + 100)
+    bm = torch.from_numpy((rng.standard_normal((B, S, G, N)) * 0.4).astype(np.float32))
+    cm = torch.from_numpy((rng.standard_normal((B, S, G, N)) * 0.4).astype(np.float32))
+    h0 = torch.from_numpy(_h0(B, H, P, N))
+    return x, dt, a, bm, cm, h0
+
+
+def _fp8(t):
+    return t.to(torch.float8_e4m3fn).float()
+
+
+def _scan(fn, x, dt, a, bm, cm, h0):
+    """``fn`` of each layout: the prefill scans take ``(B, S, G, N)``; the
+    decode step one token, ``(B, G, N)``."""
+    if fn == "ssd_plain":
+        return ssd.ssd_plain(x, dt, a, bm, cm, h0)
+    if fn == "ssd_chunked":
+        from repro_torch.models.mamba2 import ssd_chunked
+        return ssd_chunked(x, dt, a, bm, cm, chunk=32, h0=h0)
+    from repro_torch.models.mamba2 import ssd_decode_step
+    return ssd_decode_step(x[:, 0], dt[:, 0], a, bm[:, 0], cm[:, 0], h0)
+
+
+@pytest.mark.parametrize("fn", ["ssd_plain", "ssd_chunked", "ssd_decode_step"])
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_groups_equal_each_head_with_its_group(fn, case):
+    """The grouped call against each head computed alone at one group, with
+    the B / C of group ``h * G // H``; a float8 rounding of B fails it."""
+    B, S, H, P, N, G = case
+    x, dt, a, bm, cm, h0 = _grouped(*case)
+    y, h = _scan(fn, x, dt, a, bm, cm, h0)
+    ys, hs = [], []
+    for head in range(H):
+        g = head * G // H
+        yh, hh = _scan(fn, x[:, :, head:head + 1], dt[..., head:head + 1], a[head:head + 1],
+                       bm[:, :, g:g + 1], cm[:, :, g:g + 1], h0[:, head:head + 1])
+        ys.append(yh)
+        hs.append(hh)
+    hd = 2 if fn != "ssd_decode_step" else 1
+    torch.testing.assert_close(y, torch.cat(ys, dim=hd), atol=GROUP_TOL, rtol=GROUP_TOL)
+    torch.testing.assert_close(h, torch.cat(hs, dim=1), atol=GROUP_TOL, rtol=GROUP_TOL)
+    y8, _ = _scan(fn, x, dt, a, _fp8(bm), cm, h0)
+    assert float((y8 - y).abs().max()) > 10 * GROUP_TOL
+
+
+@pytest.mark.parametrize("fn", ["ssd_plain", "ssd_decode_step"])
+def test_one_group_axis_is_the_old_layout(fn):
+    """A group axis of one gives the same bits as the old layout without it
+    (``(B, S, N)``; the decode step's ``(B, N)``), and four copies of the
+    group what one gives."""
+    x, dt, a, bm, cm, h0 = _grouped(1, 50, 4, 16, 16, 1)
+    one = _scan(fn, x, dt, a, bm, cm, h0)
+    if fn == "ssd_plain":
+        flat = ssd.ssd_plain(x, dt, a, bm[:, :, 0], cm[:, :, 0], h0)
+    else:
+        from repro_torch.models.mamba2 import ssd_decode_step
+        flat = ssd_decode_step(x[:, 0], dt[:, 0], a, bm[:, 0, 0], cm[:, 0, 0], h0)
+    assert all(torch.equal(p, q) for p, q in zip(one, flat))
+    four = _scan(fn, x, dt, a, bm.expand(-1, -1, 4, -1), cm.expand(-1, -1, 4, -1), h0)
+    torch.testing.assert_close(one[0], four[0], atol=GROUP_TOL, rtol=GROUP_TOL)
+
+
+def test_wrapper_takes_groups_and_refuses_an_uneven_split():
+    """``bm`` / ``cm`` ``(B, S, G, N)`` through the wrapper (its CPU path);
+    heads that do not split into the groups raise before any launch."""
+    x, dt, a, bm, cm, h0 = _grouped(1, 40, 6, 16, 16, 3)
+    y, h = ops.mamba2_ssd(x, dt, a, bm, cm, h0=h0)
+    yp, hp = ssd.ssd_plain(x, dt, a, bm, cm, h0)
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+    x4, dt4, a4 = x[:, :, :4], dt[..., :4], a[:4]
+    with pytest.raises(ValueError, match="shapes do not agree"):
+        ops.mamba2_ssd(x4, dt4, a4, bm, cm)
