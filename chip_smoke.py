@@ -180,6 +180,7 @@ fallback.  The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -2653,6 +2654,83 @@ def restart_run(cfg, opt, data, tmp, steps, checkpoint_every, fail_at):
     return out
 
 
+#: the stacked leaves' check: stablelm_3b's widths, 2 layers, one row of 2,048 tokens
+STACKED = dict(arch="stablelm_3b", layers=2, seq_len=2048, data_seed=7)
+
+
+def per_layer_select(stack):
+    """Layer ``i`` of a stacked group as the model took it before
+    ``layer_views``: ``{name: w[i]}``, a ``select`` of each leaf in each layer,
+    whose backward zero-fills the whole stack and adds it into the gradient."""
+    class Layers:
+        def __getitem__(self, i):
+            return {name: w[i] for name, w in stack.items()}
+    return Layers()
+
+
+def stacked_grads_check(checkpoint_dir):
+    """One ``Trainer.step`` of :data:`STACKED` (remat "full", ``chunked``
+    attention) with each stacked leaf unbound once (``layer_views``) and with
+    :func:`per_layer_select`: whether the loss, the gradients and the stepped
+    parameters are the same bits; each step's bf16 fills of a tensor shaped as a
+    stacked leaf (the profiler's ``aten::zero_`` / ``aten::fill_`` calls, by
+    their shapes; on the card a ``zero_`` runs a ``fill_``), and its peak memory
+    above what was held before it."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import param_axes, param_shapes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig, Trainer
+    from repro_torch.runtime.trainer import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(STACKED["arch"]), n_layers=STACKED["layers"])
+    data = DataConfig(vocab=cfg.vocab, seq_len=STACKED["seq_len"], global_batch=1,
+                      seed=STACKED["data_seed"])
+    axes = param_axes(cfg)
+    stacked = {tuple(s) for n, s in param_shapes(cfg).items() if axes[n][:1] == ("layers",)}
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if DEVICE.type == "cuda"
+                                           else [])
+    runs = {}
+    for name in ("unbind", "select"):
+        tr = Trainer(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+                     TrainConfig(steps=1, checkpoint_every=0, checkpoint_dir=checkpoint_dir,
+                                 remat="full", attn_impl="chunked"), data, device=DEVICE)
+        params, state = tr.init_state()
+        batch = tr._put_batch(SyntheticLM(data).batch(0))
+        swap = (mock.patch.object(transformer, "layer_views", per_layer_select)
+                if name == "select" else contextlib.nullcontext())
+        with swap:
+            loss, grads = loss_and_grads(tr.model, params, batch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=activities, record_shapes=True) as prof:
+                tr.step(params, state, batch)
+                torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        fills = [e for e in prof.profiler.kineto_results.events()
+                 if e.name() in ("aten::zero_", "aten::fill_")
+                 and e.dtypes()[:1] == ["c10::BFloat16"]
+                 and tuple(e.shapes()[0]) in stacked]
+        runs[name] = {"loss": loss, "grads": grads, "fills": len(fills), "peak_gib": peak / 2**30,
+                      "params": {k: p.detach().clone() for k, p in params.items()}}
+        del tr, params, state, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    new, old = runs["unbind"], runs["select"]
+    return {"arch": cfg.name, "layers": cfg.n_layers, "tokens": STACKED["seq_len"],
+            "remat": "full", "loss_equal": bool(torch.equal(new["loss"], old["loss"])),
+            "grads_bit_equal": all(torch.equal(g, old["grads"][k])
+                                   for k, g in new["grads"].items()),
+            "params_bit_equal": all(torch.equal(p, old["params"][k])
+                                    for k, p in new["params"].items()),
+            "stacked_bf16_fills": {"unbind": new["fills"], "select": old["fills"]},
+            "step_peak_gib": {"unbind": new["peak_gib"], "select": old["peak_gib"]}}
+
+
 def phase_train(ctx):
     """``Trainer`` on the card.  Training goes through ``attention_chunked``,
     whose bfloat16 calls under autograd run the training attention kernels
@@ -2667,7 +2745,11 @@ def phase_train(ctx):
     parameters and moments, bit for bit, and so must qwen2_moe_a2_7b's at
     2 layers through the MoE capacity path (:data:`MOE_RESTART`); (c)
     float32 at 2 layers: the gradients through "chunked" against "xla"
-    within 1e-4 of their norm."""
+    within 1e-4 of their norm; (d) full width, 2 layers: a step's loss,
+    gradients and parameters with each stacked leaf unbound once are those of
+    the per-layer selects bit for bit, and it fills no bf16 tensor of a whole
+    stacked leaf (:func:`stacked_grads_check`, each step's peak memory
+    printed)."""
     import shutil
     import tempfile
 
@@ -2764,6 +2846,15 @@ def phase_train(ctx):
         require(abs(loss["chunked"] - loss["xla"]) <= 1e-5 * max(1.0, abs(loss["xla"]))
                 and err <= 1e-4 * norm, f"train: float32 chunked against xla: {out['float32']}")
         del model, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) each stacked leaf's gradient written once, the same bits
+        stacked = out["stacked"] = stacked_grads_check(os.path.join(tmp, "d"))
+        fills = stacked["stacked_bf16_fills"]
+        require(stacked["loss_equal"] and stacked["grads_bit_equal"]
+                and stacked["params_bit_equal"] and fills["unbind"] == 0 < fills["select"],
+                f"train: the stacked leaves' gradients: {stacked}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()

@@ -301,8 +301,8 @@ class Model(nn.Module):
         as in the reference."""
         cfg, params = self.cfg, self.params
         h = transformer.embed(params["embed"], tokens, self._plan).to(cfg.dtype)
-        h = mamba2.run_stack(cfg, params["mamba"], h, range(cfg.n_layers), ssm_states,
-                             conv_states, decode, self.ssd_impl, self._plan)
+        h = mamba2.run_stack(cfg, common.layer_views(params["mamba"]), h, range(cfg.n_layers),
+                             ssm_states, conv_states, decode, self.ssd_impl, self._plan)
         return rms_norm(h, params["final_ln"]), {"ssm": ssm_states, "conv": conv_states}
 
     def train_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -14,13 +14,14 @@ from typing import Any, Callable, Iterator, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.utils.checkpoint
 
+from .. import obs
 from ..kernels.ref import NEG_INF, floor_div
 
 __all__ = [
     "NEG_INF", "trunc_normal", "trunc_normal_", "rms_norm", "layer_norm", "rope_frequencies",
     "rope_sin_cos", "apply_rope", "mrope_sin_cos", "apply_mrope", "swiglu", "gelu",
     "causal_mask_bias", "REMATS", "check_remat", "remat_call", "unrolled_scans",
-    "layer_params",
+    "layer_views",
 ]
 
 # ---------------------------------------------------------------------------
@@ -250,15 +251,40 @@ def unrolled_scans():
     yield
 
 
-def layer_params(stack: Mapping[str, Any], i: int) -> Mapping[str, torch.Tensor]:
-    """Layer ``i``'s parameters of a layer-stacked group (``{name: w[i]}``).
+def layer_views(stack: Mapping[str, Any]) -> Sequence[Mapping[str, torch.Tensor]]:
+    """Each layer's parameters of a layer-stacked group: ``views[i]`` is
+    layer ``i``'s ``{name: w[i]}``.  Every leaf is unbound once, so its
+    gradient is one ``stack`` of the layers' slices, written once; a
+    ``w[i]`` a layer would zero-fill a tensor of the whole stack in each
+    layer's backward and add it into the gradient.  Take the views once a
+    forward, before the layer loop and outside any recomputed body, and hand
+    them to every piece of the forward that reads the group.  With gradients
+    off the views are the ``w[i]`` views, on the same storage.
+
     A group that hands out its layers itself (``stack.layer(i)``: the meshed
     trainer's and the dry-run's :class:`repro_torch.sharding.GatheredStack`,
-    which gathers each weight where the layer reads it) does so."""
+    which gathers each weight where the layer reads it) does so at each
+    ``views[i]``.  With telemetry on, ``params.stacks_unbound`` counts each
+    group unbound and ``params.layers_taken`` each layer a group hands out."""
     take = getattr(stack, "layer", None)
     if take is not None:
-        return take(i)
-    return {name: w[i] for name, w in stack.items()}
+        return _TakenLayers(take)
+    if obs.enabled():
+        obs.metrics().counter("params.stacks_unbound").inc()
+    names = list(stack)
+    return [dict(zip(names, row)) for row in zip(*(torch.unbind(stack[n]) for n in names))]
+
+
+class _TakenLayers:
+    """``[i]``: layer ``i`` of a group that hands out its own layers."""
+
+    def __init__(self, take: Callable[[int], Mapping[str, torch.Tensor]]):
+        self._take = take
+
+    def __getitem__(self, i: int) -> Mapping[str, torch.Tensor]:
+        if obs.enabled():
+            obs.metrics().counter("params.layers_taken").inc()
+        return self._take(i)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ import torch
 
 from ..sharding import WHOLE, ModelAxis, Product
 from .attention import attention
-from .common import layer_params, remat_call, rms_norm, swiglu, trunc_normal_
+from .common import layer_views, remat_call, rms_norm, swiglu, trunc_normal_
 from .transformer import ModelConfig, _cache_index, check_cache_room, embed
 
 Params = Dict[str, Any]
@@ -215,9 +215,9 @@ def encode(
     h = (frame_embeds.to(cfg.dtype) @ params["frame_proj"]).to(cfg.dtype)
     B, T, _ = h.shape
     positions = _positions(B, T, h.device)
+    layers = layer_views(params["enc"])
     for i in range(cfg.n_layers):
-        h = _self_block(cfg, layer_params(params["enc"], i), h, positions, attn_impl,
-                        causal=False, tp=tp)
+        h = _self_block(cfg, layers[i], h, positions, attn_impl, causal=False, tp=tp)
     return rms_norm(h, params["enc_ln"])
 
 
@@ -237,8 +237,9 @@ def decode_train(
         h = _self_block(cfg, lp, h, positions, attn_impl, causal=True, tp=tp)
         return _cross(cfg, lp, h, enc_out, enc_pos, attn_impl, tp)
 
+    layers = layer_views(params["dec"])
     for i in range(cfg.n_layers):
-        h = remat_call(body, remat, h, layer_params(params["dec"], i))
+        h = remat_call(body, remat, h, layers[i])
     return rms_norm(h, params["final_ln"])
 
 
@@ -258,8 +259,9 @@ def decode_step(
     enc_pos = _positions(B, enc_out.shape[1], h.device)
     cache_index = _cache_index(positions, kv_caches[0].shape[2])
     self_impl = decode_self_impl(attn_impl)
+    layers = layer_views(params["dec"])
     for i in range(cfg.n_layers):
-        lp = layer_params(params["dec"], i)
+        lp = layers[i]
         h = _self_block(cfg, lp, h, positions, self_impl, causal=True,
                         kv_cache=(kv_caches[0][i], kv_caches[1][i]),
                         cache_positions=cache_positions, cache_index=cache_index, tp=tp)

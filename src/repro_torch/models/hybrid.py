@@ -26,7 +26,8 @@ from ..sharding import WHOLE, ModelAxis, Product
 from . import mamba2
 from .attention import attention
 from .common import (
-    apply_rope, check_remat, remat_call, rms_norm, rope_sin_cos, swiglu, trunc_normal_,
+    apply_rope, check_remat, layer_views, remat_call, rms_norm, rope_sin_cos, swiglu,
+    trunc_normal_,
 )
 from .mamba2 import fill_mamba_layers, init_states, layer_axes, layer_shapes, run_stack
 from .transformer import ModelConfig, _cache_index, check_cache_room, embed, lm_loss
@@ -201,7 +202,7 @@ def forward(
     rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta) if apps else None
     cache_index = None if kv_caches is None else _cache_index(positions, kv_caches[0].shape[2])
 
-    layers = params["mamba"]
+    layers = layer_views(params["mamba"])
 
     def group(h, app):
         h = run_stack(cfg, layers, h, range(app * period, (app + 1) * period),

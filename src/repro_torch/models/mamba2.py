@@ -31,14 +31,14 @@ over the axis.  Its decode states hold its heads and its conv channels.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba2_ssd import by_group
 from ..sharding import WHOLE, ModelAxis, Product, Segments
-from .common import layer_params, rms_norm, trunc_normal_
+from .common import rms_norm, trunc_normal_
 
 D_CONV = 4  # depthwise causal conv width (mamba2 default)
 
@@ -418,7 +418,7 @@ def whole_conv(cfg, conv: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
 
 def run_stack(
     cfg,
-    layers: Dict[str, torch.Tensor],
+    layers: Sequence[Mapping[str, torch.Tensor]],
     h: torch.Tensor,
     layer_ids: range,
     ssm_states: Optional[torch.Tensor],
@@ -427,13 +427,15 @@ def run_stack(
     ssd_impl: str,
     tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
-    """The mamba layers ``layer_ids`` of the stack in order; writes each
+    """The mamba layers ``layer_ids`` of the stack in order, layer ``i``'s
+    parameters ``layers[i]`` (:func:`repro_torch.models.common.layer_views`,
+    taken once a forward however many pieces it runs); writes each
     layer's new states into ``ssm_states[i]`` / ``conv_states[i]`` **in place**
     (a prompt too short for a conv state leaves that layer's as it was).
     ``ssm_states`` ``None`` (training) keeps no state.  ``tp``: the plan
     the layers compute under (the states a rank's, :func:`init_states`)."""
     for i in layer_ids:
-        lp = layer_params(layers, i)
+        lp = layers[i]
         h, new_ssm, new_conv = mamba_layer(
             lp, h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk=cfg.ssm_chunk,
             ssm_state=ssm_states[i] if decode else None,

@@ -40,7 +40,7 @@ from ..device import DeviceLike, resolve_device
 from ..sharding import WHOLE, ModelAxis, Product
 from .attention import attention
 from .common import (
-    apply_mrope, apply_rope, check_remat, layer_params, mrope_sin_cos, remat_call, rms_norm,
+    apply_mrope, apply_rope, check_remat, layer_views, mrope_sin_cos, remat_call, rms_norm,
     rope_sin_cos, swiglu, trunc_normal_,
 )
 
@@ -597,9 +597,9 @@ def forward(
     rope_tables = _rope_tables(cfg, positions, mrope_positions)
     cache_index = None if kv_caches is None else _cache_index(positions, kv_caches[0].shape[2])
 
-    layers = params["layers"]
+    layers = layer_views(params["layers"])
     for i, kind in enumerate(cfg.layer_kinds()):
-        lp = layer_params(layers, i)
+        lp = layers[i]
         cache = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
         h = remat_call(block, remat, cfg, h, lp, kind, positions, attn_impl,
                        kv_cache=cache, cache_positions=cache_positions,

@@ -35,13 +35,13 @@ only: the SSD kernel is forward only, and the family splits nothing over a
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .attention import attention
-from .common import apply_rope, layer_params, rms_norm, rope_sin_cos, trunc_normal_
+from .common import apply_rope, layer_views, rms_norm, rope_sin_cos, trunc_normal_
 from .mamba2 import fill_mamba_layers, layer_axes, layer_shapes, mamba_layer
 from .transformer import ModelConfig, _cache_index, check_cache_room, embed
 
@@ -119,22 +119,21 @@ def fill_params(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 
 def shared_block(
-    cfg: ModelConfig, params: Params, app: int, h: torch.Tensor, e: torch.Tensor,
+    cfg: ModelConfig, sp: Mapping[str, torch.Tensor], ap: Mapping[str, torch.Tensor],
+    h: torch.Tensor, e: torch.Tensor,
     positions: torch.Tensor, attn_impl: str,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_positions: Optional[torch.Tensor] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Application ``app``: shared block ``app % mem_blocks`` over
-    ``concat(h, e)``, its adapter, then its ``linear``; returns what is added
-    to the next mamba layer's input.  ``kv_cache`` is this application's
+    """One application: the shared block ``sp`` over ``concat(h, e)``, the
+    application's adapter and ``linear`` (``ap``); returns what is added to
+    the next mamba layer's input.  ``kv_cache`` is this application's
     ``(B, Skv, Hkv, Dh)`` pair, **updated in place** at ``positions``."""
     z = cfg.zamba2
     B, S, _ = h.shape
     Dh = cfg.dh
-    sp = layer_params(params["shared"], app % z.mem_blocks)
-    ap = layer_params(params["apps"], app)
     x = rms_norm(torch.cat([h, e], dim=-1), sp["ln1"], EPS)
     q = (x @ sp["wq"]).reshape(B, S, -1, Dh)
     k = (x @ sp["wk"]).reshape(B, S, -1, Dh)
@@ -188,6 +187,8 @@ def forward(
     rope = rope_sin_cos(positions, cfg.dh, cfg.rope_theta)
     cache_index = None if kv_caches is None else _cache_index(positions, kv_caches[0].shape[2])
     app_of = {layer: j for j, layer in enumerate(z.hybrid_layer_ids)}
+    # each group's views once, however many applications read it
+    shared, apps, mamba = (layer_views(params[g]) for g in ("shared", "apps", "mamba"))
 
     h = e
     for i in range(cfg.n_layers):
@@ -195,11 +196,11 @@ def forward(
         if i in app_of:
             j = app_of[i]
             cache = None if kv_caches is None else (kv_caches[0][j], kv_caches[1][j])
-            add = shared_block(cfg, params, j, h, e, positions, attn_impl, kv_cache=cache,
-                               cache_positions=cache_positions, rope=rope,
-                               cache_index=cache_index)
+            add = shared_block(cfg, shared[j % z.mem_blocks], apps[j], h, e, positions,
+                               attn_impl, kv_cache=cache, cache_positions=cache_positions,
+                               rope=rope, cache_index=cache_index)
         h, new_ssm, new_conv = mamba_layer(
-            layer_params(params["mamba"], i), h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            mamba[i], h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
             chunk=cfg.ssm_chunk, ssm_state=ssm_states[i] if decode else None,
             conv_state=conv_states[i] if decode else None, decode=decode, ssd_impl=ssd_impl,
             groups=z.ssm_groups, eps=EPS, pre_add=add,

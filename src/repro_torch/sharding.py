@@ -721,7 +721,7 @@ def _cut(full: torch.Tensor, dim: int, take: Take) -> torch.Tensor:
 
 class GatheredStack:
     """A layer-stacked group of local blocks whose layer ``i``
-    (:meth:`layer`, read by :func:`repro_torch.models.common.layer_params`)
+    (:meth:`layer`, read by :func:`repro_torch.models.common.layer_views`)
     reads each weight where the layer runs (:func:`read`): gathered over the
     data axes, and over ``model`` unless the plan splits its product
     (``takes``).  Inside a rematerialised layer the gather is redone in

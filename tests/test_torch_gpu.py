@@ -423,6 +423,21 @@ def test_model_step_gap_refuses_a_float8_control_on_the_card():
     assert control > TRAIN_STEP_GAP_RATIO * loop, (control, loop)
 
 
+@pytest.mark.gpu
+def test_stacked_leaves_grads_are_the_per_layer_selects_on_the_card(tmp_path):
+    """One ``Trainer.step`` at stablelm_3b's widths, 2 layers: with each stacked
+    leaf unbound once a forward, the loss, the gradients and the stepped
+    parameters are the per-layer ``w[i]``'s bit for bit, and no bf16 fill of a
+    whole stacked leaf runs, where the per-layer selects run some."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import chip_smoke
+
+    got = chip_smoke.stacked_grads_check(str(tmp_path))
+    assert got["loss_equal"] and got["grads_bit_equal"] and got["params_bit_equal"], got
+    assert got["stacked_bf16_fills"]["unbind"] == 0 < got["stacked_bf16_fills"]["select"], got
+
+
 # ---------------------------------------------------------------------------
 # Zamba2-7B's shapes: two B / C groups, heads of 224 with their own scale
 # ---------------------------------------------------------------------------

@@ -170,7 +170,9 @@ def test_server_spans_and_counters(telemetry_on, monkeypatch):
     busy = sum(len(c.tokens) - 1 for c in done)
     assert snap == {"serve.prefill_tokens": sum(len(r.prompt) for r in reqs),
                     "serve.decode_rows": len(steps) * server.cfg.batch_slots,
-                    "serve.busy_rows": busy}
+                    "serve.busy_rows": busy,
+                    # one forward a prefill and a step: the stacked group unbound once each
+                    "params.stacks_unbound": len(reqs) + len(steps)}
     assert busy < len(steps) * server.cfg.batch_slots     # the last request ran alone
     (call,) = [r for r in records if r.name == "serve"]
     assert all(r.parent_id == call.span_id for r in records if r is not call)

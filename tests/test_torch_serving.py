@@ -206,9 +206,10 @@ def test_metrics_snapshot_and_telemetry():
     spans = [e for e in obs.get_telemetry().events if e.name == "serve"]
     assert len(spans) == 1 and spans[0].attrs == {"requests": 5, "completions": 5}
     # the Server's counters: 30 prompt tokens; 9 decode steps of 2 rows (3 a
-    # request, the fifth alone), 15 of them busy (20 tokens, 5 from prefills)
+    # request, the fifth alone), 15 of them busy (20 tokens, 5 from prefills);
+    # the model's stacked group unbound once a forward (5 prefills, 9 steps)
     assert obs.metrics().snapshot() == {"serve.prefill_tokens": 30, "serve.decode_rows": 18,
-                                        "serve.busy_rows": 15}
+                                        "serve.busy_rows": 15, "params.stacks_unbound": 14}
     assert '"serve"' in obs.to_jsonl() and obs.chrome_trace()["traceEvents"][0]["name"] == "serve"
     obs.reset()
 

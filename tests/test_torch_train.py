@@ -25,6 +25,7 @@ import torch
 
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
+import repro_torch.models as models
 from repro.checkpoint import CheckpointManager as JCheckpointManager
 from repro.checkpoint import restore_tree as jrestore_tree
 from repro.checkpoint import save_tree as jsave_tree
@@ -38,10 +39,11 @@ from repro.optim import adamw_init as jadamw_init
 from repro.optim import adamw_update as jadamw_update
 from repro.optim import cosine_schedule as jcosine_schedule
 from repro.optim import global_norm as jglobal_norm
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.checkpoint import CheckpointManager, restore_tree, save_tree
 from repro_torch.data import DataConfig, SyntheticLM, make_batch_shapes
-from repro_torch.models import Model, hybrid, param_shapes, transformer
+from repro_torch.models import (Model, encdec, hybrid, param_axes, param_shapes, transformer,
+                                zamba2)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule, global_norm
 from repro_torch.runtime import StragglerDetector, TrainConfig, Trainer
 
@@ -237,6 +239,96 @@ def test_remat_changes_nothing(family):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
     with pytest.raises(ValueError, match="remat"):
         Model(model.cfg, device="cpu", remat="some")
+
+
+def _grad_nodes(loss, name):
+    """The nodes of ``loss``'s backward graph named ``name``."""
+    seen, todo, found = set(), [loss.grad_fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen.add(id(node))
+        if node.name() == name:
+            found.append(node)
+        todo.extend(fn for fn, _ in node.next_functions)
+    return found
+
+
+def _stacked(model):
+    """The names of the model's layer-stacked leaves, by their stacked groups."""
+    groups = {}
+    for name, axes in param_axes(model.cfg).items():
+        if axes[:1] == ("layers",):
+            groups.setdefault(name.rpartition(".")[0], []).append(name)
+    return groups
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid", "audio"])
+def test_stacked_leaves_grads_equal_the_per_layer_select(family, remat, monkeypatch):
+    """Each stacked leaf unbound once a forward (``layer_views``) gives the
+    loss and every gradient of the old per-layer ``w[i]``
+    (``chip_smoke.per_layer_select``), bit for bit: each slice's gradient is
+    stacked instead of summed with exact zeros."""
+    from chip_smoke import per_layer_select
+
+    cfg = tconfigs.reduced_config(FAMILIES[family])
+    model = Model(cfg, device="cpu", remat=remat).init(seed=0)
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    if "frame_embeds" in batch:
+        batch["frame_embeds"] = batch["frame_embeds"].bfloat16()
+
+    def loss_and_grads():
+        loss = model.train_loss(batch)
+        return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    loss, grads = loss_and_grads()
+    for mod in (models.common, transformer, encdec, hybrid, zamba2):
+        monkeypatch.setattr(mod, "layer_views", per_layer_select)
+    old_loss, old_grads = loss_and_grads()
+    # one unbind a stacked leaf, however many pieces of the forward read its group
+    n_stacked = sum(len(names) for names in _stacked(model).values())
+    assert n_stacked and len(_grad_nodes(loss, "UnbindBackward0")) == n_stacked
+    assert not _grad_nodes(old_loss, "UnbindBackward0")
+    assert torch.equal(loss, old_loss)
+    assert all(torch.equal(g, old_grads[k]) for k, g in grads.items())
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_backward_holds_one_unbind_per_stacked_leaf(remat):
+    """stablelm's backward takes each stacked leaf's gradient from one
+    ``UnbindBackward0`` and from no ``SelectBackward0``; with telemetry on,
+    ``params.stacks_unbound`` counts one a stacked group a forward."""
+    cfg = tconfigs.reduced_config("stablelm_3b")
+    model = Model(cfg, device="cpu", remat=remat).init(seed=0)
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    stacked = {id(params[n]): n for names in _stacked(model).values() for n in names}
+    obs.reset()
+    obs.enable()
+    try:
+        loss = model.train_loss(batch)
+        model.train_loss(batch)
+        counters = obs.metrics().snapshot()
+    finally:
+        obs.disable()
+        obs.reset()
+
+    def leaves(node):
+        return [stacked.get(id(getattr(fn, "variable", None))) for fn, _ in node.next_functions
+                if fn is not None]
+
+    unbound = [n for node in _grad_nodes(loss, "UnbindBackward0") for n in leaves(node)]
+    assert sorted(unbound) == sorted(stacked.values())
+    assert not any(n for node in _grad_nodes(loss, "SelectBackward0") for n in leaves(node))
+    assert counters == {"params.stacks_unbound": 2 * len(_stacked(model)),
+                        "attn.chunked_loop_calls": 2 * cfg.n_layers}
 
 
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
