@@ -199,13 +199,13 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import COUNTED, _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import train_attention as ta  # noqa: E402
 from repro_torch.models import Model, transformer  # noqa: E402
 from repro_torch.obs import Histogram  # noqa: E402
-from repro_torch.runtime import Request, ServeConfig, Server, serving  # noqa: E402
+from repro_torch.runtime import Request, ServeConfig, Server  # noqa: E402
 from repro_torch.runtime.serving import StepGraph  # noqa: E402
 
 SERVING = ["serve", "serve_mamba2", "serve_zamba2", "serve_qwen2_moe", "serve_qwen2_vl",
@@ -1993,8 +1993,9 @@ def serve_path(ctx, phase, arch, expected, compare_impl, tol, why, spread=None, 
         "capture_s": round(graph.capture_seconds, 3),
         "pool_mib": round(graph.pool_bytes / 2**20, 1), "replays": graph.replays - replays,
         "warm_step_ms": round(wms[0], 3), "capture_step_ms": round(wms[1], 3),
-        "launches_a_replay": {w.__name__: n for w, (n, _) in
-                              zip(serving.KERNEL_WRAPPERS, graph.launches)},
+        "launches_a_replay": {name: graph.launches.get((name, "launches", None), 0)
+                              for name, (_, counters) in COUNTED.items()
+                              if "launches" in counters},
         "replayed_step_ms_p50": round(float(np.median(ms)), 3)}
     eager_ms = erun["step_ms"]["decode"]
     eager_fields = {"serve_seconds": round(erun["serve_s"], 3),
@@ -2546,7 +2547,7 @@ def phase_serve_whisper(ctx):
     L, n = cfg.n_layers, WHISPER["steps"]
     # the encoder: one self-attention a layer (mma); a decode step: one
     # self-attention and one cross-attention a decoder layer (split)
-    want = {"flash_attention": L + n * 2 * L, "mamba2_ssd": 0}
+    want = {"flash_attention": L + n * 2 * L, "mamba2_ssd": 0, "train_attention": 0}
     want_paths = {"fma": 0, "mma": L, "split": n * 2 * L}
     require(launches == want and paths == want_paths,
             f"{cfg.name}: launches {launches} by path {paths}, expected {want} by path "

@@ -11,10 +11,11 @@ architecture, with the reference's skips and their reasons.
 from __future__ import annotations
 
 import importlib
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-from repro_torch.models import ModelConfig
+from repro_torch.models import ModelConfig, param_shapes
 from repro_torch.models.mamba2 import mamba_dims
 
 ARCH_IDS = [
@@ -109,11 +110,9 @@ def param_count(cfg: ModelConfig) -> int:
     (``a_log``, ``d_skip``, ``dt_bias``), and the hybrid's two shared-block
     norms; for ``audio`` every norm (``ln1``, ``ln2``, ``lnx``, ``enc_ln``,
     ``final_ln``).  The port keeps the formula so that the two counts stay
-    equal.  The zamba2 family (port-only) is counted exactly, every leaf."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "zamba2"):
-        raise ValueError(f"param_count: unknown family {cfg.family!r}")
-    if cfg.family == "zamba2":
-        return _zamba2_param_count(cfg)
+    equal.  A family of the port alone (zamba2), which the reference has no
+    formula for, is counted exactly: every leaf of its ``param_shapes`` (an
+    unknown family raises there)."""
     D, L, V, F = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.d_ff
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     total = V * D  # embed
@@ -135,29 +134,14 @@ def param_count(cfg: ModelConfig) -> int:
         per_enc = D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
         per_dec = per_enc + D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D
         return total + L * (per_enc + per_dec) + D * D
-    d_inner, conv_dim = mamba_dims(D, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-    proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
-    total += L * (D * proj + 4 * conv_dim + d_inner * D + d_inner + D)
-    if cfg.family == "hybrid":  # the one shared block
-        total += D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
-    return total
-
-
-def _zamba2_param_count(cfg: ModelConfig) -> int:
-    """Every leaf of :mod:`repro_torch.models.zamba2`: the embedding (the
-    tied head), the mamba layers, the shared blocks once each, and each
-    application's adapter and linear."""
-    z = cfg.zamba2
-    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
-    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, z.ssm_groups
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    d_inner, conv_dim = mamba_dims(D, H, P, N, G)
-    mamba = (D * (2 * d_inner + 2 * G * N + H) + 5 * conv_dim + 3 * H + d_inner
-             + d_inner * D + D)
-    block = 2 * D + 2 * D * (Hq + 2 * Hkv) * Dh + Hq * Dh * D + D + 3 * D * F
-    app = D * z.adapter_rank + z.adapter_rank * 2 * F + D * D
-    return (V * D + cfg.n_layers * mamba + z.mem_blocks * block
-            + len(z.hybrid_layer_ids) * app + D)
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner, conv_dim = mamba_dims(D, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+        total += L * (D * proj + 4 * conv_dim + d_inner * D + d_inner + D)
+        if cfg.family == "hybrid":  # the one shared block
+            total += D * Hq * Dh + 2 * D * Hkv * Dh + Hq * Dh * D + 3 * D * F
+        return total
+    return sum(math.prod(shape) for shape in param_shapes(cfg).values())
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -1,14 +1,32 @@
 """Unified model API of the port.
 
 Counterpart of ``repro.models``: ``Model`` dispatches on
-``ModelConfig.family``, as the reference does:
+``ModelConfig.family``, as the reference does, through one table,
+:data:`FAMILIES`, from the family's name to its module:
 
 * ``dense`` / ``moe`` / ``vlm`` -> :mod:`repro_torch.models.transformer`
-* ``ssm``    -> a pure Mamba2 stack (:mod:`repro_torch.models.mamba2`)
+* ``ssm``    -> :mod:`repro_torch.models.ssm` (a pure Mamba2 stack)
 * ``hybrid`` -> :mod:`repro_torch.models.hybrid` (the reference's Zamba2-style hybrid)
 * ``zamba2`` -> :mod:`repro_torch.models.zamba2` (the published Zamba2 block;
   port-only, serving only)
 * ``audio``  -> :mod:`repro_torch.models.encdec` (Whisper)
+
+Every family module has the same interface, which is all that ``Model``
+and this module's functions call:
+
+    param_shapes(cfg) / param_axes(cfg) / split_products(cfg)
+    fill_params(cfg, params, generator)
+    train_loss(cfg, params, batch, *, attn_impl, ssd_impl, remat, tp)
+    new_state(cfg, batch, max_len, device, tp)   -> the decode state's leaves, no "pos"
+    prefill(cfg, params, batch, max_len, device, state, *, attn_impl, ssd_impl, tp,
+            check_room)                          -> (hidden, leaves); state None: new_state's
+    decode_step(cfg, params, tokens, state, *, attn_impl, ssd_impl, tp, check_room)
+                                                 -> (hidden, leaves), updated in place
+    STATE           the decode state's leaves besides "pos" ("kv", "ssm", "conv", "enc")
+    TIED_HEAD       whether the head is ``embed.T`` whatever ``cfg.tie_embeddings`` says
+    FLOAT32_LEAVES  the parameters kept in float32 whatever ``cfg.dtype``
+
+A new family is one such module and one entry of :data:`FAMILIES`.
 
 ``Model`` is an ``nn.Module`` that owns the layer-stacked parameters under the
 reference's key names, each in the reference's dtype (:func:`param_dtypes`:
@@ -32,97 +50,65 @@ trainer:
                                        ``params`` instead of the model's own (and,
                                        on a mesh, compute this rank's share of
                                        the products ``plan`` splits)
+
+The launch counters of the kernels the entry points run are read and raised
+through :mod:`repro_torch.kernels`' functions, handed on here to the runtime.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+from types import ModuleType
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..kernels import add_launches, launch_counts, launches_since, telemetry_counts
 from ..sharding import WHOLE, ModelAxis, Product
-from . import common, encdec, hybrid, mamba2, transformer, zamba2
-from .common import check_remat, rms_norm
+from . import encdec, hybrid, mamba2, ssm, transformer, zamba2
+from .common import check_remat
 from .transformer import BIG, ModelConfig, MoEConfig, Zamba2Config
 
-__all__ = ["Model", "ModelConfig", "MoEConfig", "Zamba2Config", "BIG", "param_shapes", "param_dtypes",
-           "param_axes", "split_products"]
+__all__ = ["Model", "ModelConfig", "MoEConfig", "Zamba2Config", "BIG", "FAMILIES", "family",
+           "param_shapes", "param_dtypes", "param_axes", "split_products", "add_launches",
+           "launch_counts", "launches_since", "telemetry_counts"]
 
 State = Dict[str, Any]
 
-PORTED = ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "zamba2")
-#: what the transformer path serves
-_TRANSFORMER = ("dense", "moe", "vlm")
+#: each family's module, by the family's name
+FAMILIES: Dict[str, ModuleType] = {
+    "dense": transformer, "moe": transformer, "vlm": transformer, "ssm": ssm,
+    "hybrid": hybrid, "zamba2": zamba2, "audio": encdec,
+}
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}): one of {PORTED}")
+def family(cfg: ModelConfig) -> ModuleType:
+    """The module of ``cfg``'s family (:data:`FAMILIES`)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}): one of {tuple(FAMILIES)}")
+    return FAMILIES[cfg.family]
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """Flat ``name -> shape`` of the model's parameters, for every family
     (dots separate the levels of the reference's tree)."""
-    _require_ported(cfg)
-    if cfg.family in _TRANSFORMER:
-        return transformer.param_shapes(cfg)
-    if cfg.family == "hybrid":
-        return hybrid.param_shapes(cfg)
-    if cfg.family == "zamba2":
-        return zamba2.param_shapes(cfg)
-    if cfg.family == "audio":
-        return encdec.param_shapes(cfg)
-    layer = mamba2.layer_shapes(cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-    return {
-        "embed": (cfg.vocab, cfg.d_model),
-        **{f"mamba.{k}": (cfg.n_layers,) + s for k, s in layer.items()},
-        "final_ln": (cfg.d_model,),
-    }
+    return family(cfg).param_shapes(cfg)
 
 
 def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     """Flat ``name -> logical axes`` (:func:`param_shapes`' keys), for every
     family: the reference's axes tree, flattened as :mod:`repro_torch.convert`
     flattens its parameter tree."""
-    _require_ported(cfg)
-    if cfg.family in _TRANSFORMER:
-        return transformer.param_axes(cfg)
-    if cfg.family == "hybrid":
-        return hybrid.param_axes(cfg)
-    if cfg.family == "zamba2":
-        return zamba2.param_axes(cfg)
-    if cfg.family == "audio":
-        return encdec.param_axes(cfg)
-    return {"embed": ("vocab", "embed_tbl"),
-            **{f"mamba.{k}": ("layers",) + a for k, a in mamba2.layer_axes().items()},
-            "final_ln": ("embed",)}
+    return family(cfg).param_axes(cfg)
 
 
 def split_products(cfg: ModelConfig) -> Dict[str, Product]:
     """The products the ``model`` axis may split, with the leaves each reads
-    (:func:`repro_torch.sharding.model_axis` turns them into a rank's plan),
-    each family's own: the transformers' heads, ``ff``, experts and
-    vocabulary (:func:`transformer.split_products`); the ssm family's SSM
-    heads (:func:`mamba2.split_products`) and tied vocabulary; zamba2's SSM
-    heads, its shared block's heads and ``ff``, and the vocabulary
-    (:func:`hybrid.split_products`); whisper's heads (encoder, decoder and
-    cross-attention alike), ``ff`` and vocabulary
-    (:func:`encdec.split_products`).  The zamba2 family splits nothing and
-    raises (:func:`zamba2.split_products`)."""
-    _require_ported(cfg)
-    if cfg.family in _TRANSFORMER:
-        return transformer.split_products(cfg)
-    if cfg.family == "hybrid":
-        return hybrid.split_products(cfg)
-    if cfg.family == "zamba2":
-        return zamba2.split_products(cfg)
-    if cfg.family == "audio":
-        return encdec.split_products(cfg)
-    return {**mamba2.split_products(cfg), "vocab": Product({"embed": 0}, cfg.vocab)}
+    (:func:`repro_torch.sharding.model_axis` turns them into a rank's plan):
+    each family module's own.  The zamba2 family splits nothing and raises."""
+    return family(cfg).split_products(cfg)
 
 
 #: the decode state's leaves that hold heads a plan may split: the dim of
@@ -164,17 +150,12 @@ def whole_state(cfg: ModelConfig, key: str, x: torch.Tensor, plan: ModelAxis,
 
 def param_dtypes(cfg: ModelConfig) -> Dict[str, torch.dtype]:
     """Flat ``name -> dtype``, the reference's: ``cfg.dtype`` for every
-    parameter but a mamba layer's ``a_log`` / ``d_skip`` / ``dt_bias``, which
-    are float32 whatever the model's dtype.  The zamba2 family holds every
-    leaf in ``cfg.dtype``, as the published checkpoint does (the scan reads
-    those three in float32 all the same)."""
-    if cfg.family == "zamba2":
-        return {name: cfg.dtype for name in param_shapes(cfg)}
-    return {
-        name: mamba2.leaf_dtype(name.rsplit(".", 1)[-1], cfg.dtype)
-        if name.startswith("mamba.") else cfg.dtype
-        for name in param_shapes(cfg)
-    }
+    parameter but the family's ``FLOAT32_LEAVES`` (a mamba layer's
+    ``a_log`` / ``d_skip`` / ``dt_bias`` in the ssm and hybrid families),
+    which are float32 whatever the model's dtype.  The zamba2 family holds
+    every leaf in ``cfg.dtype``, as the published checkpoint does."""
+    fp32 = family(cfg).FLOAT32_LEAVES
+    return {name: torch.float32 if name in fp32 else cfg.dtype for name in param_shapes(cfg)}
 
 
 class Model(nn.Module):
@@ -183,7 +164,8 @@ class Model(nn.Module):
     hands every parameter over with ``load_state_dict(..., assign=True)``
     (the server does so).  ``remat`` (``none | dots | full``) applies to
     :meth:`train_loss`, except in the ssm family, where the reference
-    recomputes no layer either."""
+    recomputes no layer either.  ``family`` is the family's module
+    (:data:`FAMILIES`)."""
 
     def __init__(
         self, cfg: ModelConfig, attn_impl: str = "chunked", ssd_impl: str = "chunked",
@@ -191,12 +173,10 @@ class Model(nn.Module):
         remat: str = "none",
     ):
         super().__init__()
-        _require_ported(cfg)
-        if ssd_impl not in mamba2.SSD_IMPLS:
-            raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
+        self.family = family(cfg)
         self.cfg = cfg
         self.attn_impl = attn_impl
-        self.ssd_impl = ssd_impl
+        self.ssd_impl = mamba2.check_ssd_impl(ssd_impl)
         self.remat = check_remat(remat)
         self.device = resolve_device(device)
         self._bound: Optional[Mapping[str, Any]] = None
@@ -225,28 +205,9 @@ class Model(nn.Module):
         model's device, seeded with ``seed``, if none is given), in place:
         a large leaf block by block, so the only memory beyond the weights is
         one block's float32 draw."""
-        cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        params = dict(self.named_parameters())
-        if cfg.family in _TRANSFORMER:
-            transformer.fill_params(cfg, params, generator)
-        elif cfg.family == "hybrid":
-            hybrid.fill_params(cfg, params, generator)
-        elif cfg.family == "zamba2":
-            zamba2.fill_params(cfg, params, generator)
-        elif cfg.family == "audio":
-            encdec.fill_params(cfg, params, generator)
-        else:
-            # the reference draws the ssm family's embedding from a plain normal
-            for part in common.draw_blocks(params["embed"], common.DRAW_BLOCK):
-                part.copy_(torch.randn(part.shape, generator=generator, device=self.device)
-                           .mul_(0.02))
-            mamba2.fill_mamba_layers(
-                {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("mamba.")},
-                generator, cfg.d_model,
-            )
-            params["final_ln"].zero_()
+        self.family.fill_params(self.cfg, dict(self.named_parameters()), generator)
         return self
 
     @property
@@ -286,24 +247,8 @@ class Model(nn.Module):
 
     # -- forward paths -----------------------------------------------------------
 
-    def _cache_positions(self, batch: int, max_len: int) -> torch.Tensor:
-        return torch.arange(max_len, dtype=torch.int32, device=self.device)[None].expand(
-            batch, max_len
-        )
-
-    def _ssm_forward(
-        self, tokens: torch.Tensor, ssm_states: Optional[torch.Tensor] = None,
-        conv_states: Optional[torch.Tensor] = None, decode: bool = False,
-    ) -> Tuple[torch.Tensor, State]:
-        """The mamba stack of the ``ssm`` family: a loop over the stacked
-        ``mamba.*`` leaves.  States passed in are updated in place; without
-        them none is kept (training).  No layer is recomputed under ``remat``,
-        as in the reference."""
-        cfg, params = self.cfg, self.params
-        h = transformer.embed(params["embed"], tokens, self._plan).to(cfg.dtype)
-        h = mamba2.run_stack(cfg, common.layer_views(params["mamba"]), h, range(cfg.n_layers),
-                             ssm_states, conv_states, decode, self.ssd_impl, self._plan)
-        return rms_norm(h, params["final_ln"]), {"ssm": ssm_states, "conv": conv_states}
+    def _impls(self) -> Dict[str, Any]:
+        return {"attn_impl": self.attn_impl, "ssd_impl": self.ssd_impl, "tp": self._plan}
 
     def train_loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token loss of ``batch["targets"]`` given ``batch["tokens"]``
@@ -313,46 +258,9 @@ class Model(nn.Module):
         hybrid, score through the tied head.  Gradients reach the parameters
         that ask for them (a trainer turns them on) through ``attn_impl``
         ``"xla"`` / ``"chunked"`` and ``ssd_impl="chunked"``; the kernels are
-        forward only and raise."""
-        cfg, params = self.cfg, self.params
-        tokens, targets = batch["tokens"], batch["targets"]
-        if cfg.family == "zamba2":
-            raise NotImplementedError(
-                f"{cfg.name}: the zamba2 family serves only; training waits for a backward of "
-                "the SSD kernel (ROADMAP E3)")
-        if cfg.family in _TRANSFORMER:
-            h, _ = transformer.forward(
-                cfg, params, tokens, attn_impl=self.attn_impl, remat=self.remat,
-                patch_embeds=batch.get("patch_embeds"),
-                mrope_positions=batch.get("mrope_positions"), tp=self._plan,
-            )
-            return transformer.lm_loss(cfg, params, h, targets, tp=self._plan)
-        if cfg.family == "hybrid":
-            h, _ = hybrid.forward(cfg, params, tokens, attn_impl=self.attn_impl,
-                                  ssd_impl=self.ssd_impl, remat=self.remat, tp=self._plan)
-            return hybrid.lm_head_loss(cfg, params, h, targets, tp=self._plan)
-        if cfg.family == "ssm":
-            h, _ = self._ssm_forward(tokens)
-        else:   # audio
-            enc = encdec.encode(cfg, params, batch["frame_embeds"], self.attn_impl, self._plan)
-            h = encdec.decode_train(cfg, params, enc, tokens, self.attn_impl, self.remat,
-                                    self._plan)
-        tied = dataclasses.replace(cfg, tie_embeddings=True)
-        return transformer.lm_loss(tied, {"embed": params["embed"]}, h, targets, tp=self._plan)
-
-    def _hybrid_kv(self, batch: int, max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Zeroed ``(apps, B, max_len, Hkv, Dh)`` caches in ``cfg.dtype``, as the
-        reference's hybrid keeps them (the dense family's are bfloat16)."""
-        return self._kv(hybrid.n_attn_applications(self.cfg), batch, max_len)
-
-    def _kv(self, n: int, batch: int, max_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Zeroed ``(n, B, max_len, Hkv, Dh)`` caches in ``cfg.dtype`` of the
-        K / V heads this rank computes (all of them off a mesh)."""
-        cfg = self.cfg
-        k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
-        shape = (n, batch, max_len, k1 - k0, cfg.dh)
-        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+        forward only and raise.  The zamba2 family serves only and raises."""
+        return self.family.train_loss(self.cfg, self.params, batch, remat=self.remat,
+                                      **self._impls())
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], max_len: int, check_room: bool = True,
@@ -364,19 +272,13 @@ class Model(nn.Module):
         ``check_room=False`` (a prefill captured in a CUDA graph) the caller
         has checked its length on the host, and on the card nothing in the
         dense, moe, vlm, ssm and hybrid prefills reads a value back.  ``out``
-        (a decode state of this model, batch and ``max_len``; not the audio
-        family's) is zeroed, filled in place and returned where the state
-        would otherwise be made anew: a captured prefill then returns only
-        tensors made outside its capture.
-
-        The audio family returns the **encoder output** of
-        ``batch["frame_embeds"]`` and the state ``{"kv", "enc", "pos"}``: empty
-        ``(L, B, max_len, Hkv, Dh)`` self-attention caches in ``cfg.dtype``,
-        the encoder output, and position 0 for every row.  The prompt's
-        tokens give only the batch size, as in the reference."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        (a decode state of this model, batch and ``max_len``) is zeroed,
+        filled in place and returned where the state would otherwise be made
+        anew: a captured prefill then returns only tensors made outside its
+        capture.  The audio family returns the encoder output
+        (:func:`repro_torch.models.encdec.prefill`)."""
+        B, S = batch["tokens"].shape
+        state = None
         if out is None:
             pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         else:
@@ -384,45 +286,11 @@ class Model(nn.Module):
                 for t in leaf if isinstance(leaf, tuple) else (leaf,):
                     t.zero_()
             pos = out["pos"].fill_(S)
-        if cfg.family == "audio":
-            enc = encdec.encode(cfg, self.params, batch["frame_embeds"], self.attn_impl,
-                                self._plan)
-            kv = self._kv(cfg.n_layers, B, max_len)
-            return enc, {"kv": kv, "enc": enc, "pos": torch.zeros_like(pos)}
-        if cfg.family in ("ssm", "hybrid", "zamba2"):
-            ssm, conv = ((out["ssm"], out["conv"]) if out is not None
-                         else mamba2.init_states(cfg, B, self.device, self._plan))
-        if cfg.family == "ssm":
-            h, state = self._ssm_forward(tokens, ssm, conv)
-            return h, {**state, "pos": pos}
-        if cfg.family == "hybrid":
-            h, state = hybrid.forward(
-                cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
-                kv_caches=out["kv"] if out is not None else self._hybrid_kv(B, max_len),
-                cache_positions=self._cache_positions(B, max_len),
-                ssm_states=ssm, conv_states=conv, tp=self._plan, check_room=check_room,
-            )
-            return h, {**state, "pos": pos}
-        if cfg.family == "zamba2":
-            h, state = zamba2.forward(
-                cfg, self.params, tokens, attn_impl=self.attn_impl, ssd_impl=self.ssd_impl,
-                kv_caches=(out["kv"] if out is not None
-                           else self._kv(zamba2.applications(cfg), B, max_len)),
-                cache_positions=self._cache_positions(B, max_len),
-                ssm_states=ssm, conv_states=conv, check_room=check_room,
-            )
-            return h, {**state, "pos": pos}
-        k0, k1 = self._plan.range("kv_heads", cfg.n_kv_heads)
-        caches = (out["kv"] if out is not None else
-                  transformer.init_kv_cache(cfg, B, max_len, device=self.device,
-                                            kv_heads=k1 - k0))
-        h, caches = transformer.forward(
-            cfg, self.params, tokens, attn_impl=self.attn_impl,
-            kv_caches=caches, cache_positions=self._cache_positions(B, max_len),
-            patch_embeds=batch.get("patch_embeds"), mrope_positions=batch.get("mrope_positions"),
-            tp=self._plan, check_room=check_room,
-        )
-        return h, {"kv": caches, "pos": pos}
+            state = {k: v for k, v in out.items() if k != "pos"}
+        h, state = self.family.prefill(self.cfg, self.params, batch, max_len, self.device, state,
+                                       check_room=check_room, **self._impls())
+        state.setdefault("pos", pos)     # the audio family's decoder starts at 0
+        return h, state
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, state: State,
@@ -439,49 +307,16 @@ class Model(nn.Module):
         end writes where the reference's clamped insert writes, and on the
         card nothing else in the dense, moe, vlm, ssm and hybrid steps reads
         a value back.  The audio step checks always."""
-        cfg = self.cfg
-        B = tokens.shape[0]
         pos = state["pos"] + 1
-        if cfg.family == "ssm":
-            h, new = self._ssm_forward(tokens, state["ssm"], state["conv"], decode=True)
-            return h, {**new, "pos": pos}
-        kv = state["kv"]
-        cache_pos = self._cache_positions(B, kv[0].shape[2])
-        if cfg.family == "audio":
-            h, kv = encdec.decode_step(cfg, self.params, state["enc"], tokens,
-                                       state["pos"][:, None], kv, cache_pos, self.attn_impl,
-                                       self._plan)
-            return h, {"kv": kv, "enc": state["enc"], "pos": pos}
-        if cfg.family == "hybrid":
-            h, new = hybrid.forward(
-                cfg, self.params, tokens, positions=state["pos"][:, None],
-                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
-                cache_positions=cache_pos, ssm_states=state["ssm"],
-                conv_states=state["conv"], decode=True, tp=self._plan, check_room=check_room,
-            )
-            return h, {**new, "pos": pos}
-        if cfg.family == "zamba2":
-            h, new = zamba2.forward(
-                cfg, self.params, tokens, positions=state["pos"][:, None],
-                attn_impl=self.attn_impl, ssd_impl=self.ssd_impl, kv_caches=kv,
-                cache_positions=cache_pos, ssm_states=state["ssm"], conv_states=state["conv"],
-                decode=True, check_room=check_room,
-            )
-            return h, {**new, "pos": pos}
-        h, kv = transformer.forward(
-            cfg, self.params, tokens, positions=state["pos"][:, None],
-            attn_impl=self.attn_impl, kv_caches=kv, cache_positions=cache_pos, tp=self._plan,
-            check_room=check_room,
-        )
-        return h, {"kv": kv, "pos": pos}
+        h, new = self.family.decode_step(self.cfg, self.params, tokens, state,
+                                         check_room=check_room, **self._impls())
+        return h, {**new, "pos": pos}
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         """The logits this rank computes: its block of the vocabulary where
         the plan splits it (``lm_head``, or ``embed.T`` where tied: the ssm,
         hybrid, zamba2 and audio families tie theirs)."""
-        if self.cfg.family in _TRANSFORMER:
-            return transformer.lm_head(self.cfg, self.params, h)
-        return h @ self.params["embed"].T.to(h.dtype)
+        return transformer.lm_head(self.cfg, self.params, h, tied=self.family.TIED_HEAD)
 
     @torch.no_grad()
     def logits(self, h: torch.Tensor) -> torch.Tensor:

@@ -41,12 +41,24 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..sharding import WHOLE, ModelAxis, Product
+from . import transformer
 from .attention import attention
 from .common import layer_views, remat_call, rms_norm, swiglu, trunc_normal_
-from .transformer import ModelConfig, _cache_index, check_cache_room, embed
+from .hybrid import lm_head_loss
+from .transformer import (
+    ModelConfig, _cache_index, arange_positions, cache_insert, check_cache_room, embed,
+    slot_positions,
+)
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]
+
+#: the decode state's leaves besides ``pos``
+STATE = ("kv", "enc")
+#: the head is the embedding's transpose, as the reference's whisper ties it
+TIED_HEAD = True
+#: no leaf is kept in float32 whatever ``cfg.dtype``
+FLOAT32_LEAVES = ()
 
 #: the leaves of one encoder layer, in the reference's order; a decoder
 #: layer adds cross-attention's five after ``wo``
@@ -135,10 +147,6 @@ def fill_params(
             trunc_normal_(p, generator, 0.02 if leaf == "embed" else 1.0 / math.sqrt(p.shape[-2]))
 
 
-def _positions(batch: int, n: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(n, dtype=torch.int32, device=device)[None].expand(batch, n)
-
-
 def decode_self_impl(attn_impl: str) -> str:
     """The attention path of a decode step's self-attention: the kernel where
     asked for, else ``"chunked"`` as the reference pins it."""
@@ -169,15 +177,7 @@ def _self_block(
     q = (x @ lp["wq"]).reshape(B, S, -1, Dh)
     k = (x @ lp["wk"]).reshape(B, S, -1, Dh)
     v = (x @ lp["wv"]).reshape(B, S, -1, Dh)
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        rows, cols = (cache_index if cache_index is not None
-                      else _cache_index(positions, ck.shape[1]))
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        k, v, kv_pos = ck, cv, cache_positions
-    else:
-        kv_pos = positions
+    k, v, kv_pos = cache_insert(k, v, positions, kv_cache, cache_positions, cache_index)
     q_pos = positions if causal else torch.full_like(positions, kv_pos.shape[1])
     o = attention(q, k, v, q_pos, kv_pos, impl=attn_impl)
     h = h + tp.leave(o.reshape(B, S, -1) @ lp["wo"], "heads").to(h.dtype)
@@ -214,7 +214,7 @@ def encode(
     output ``(B, T, D)`` in ``cfg.dtype``; ``tp`` the plan of a rank's share."""
     h = (frame_embeds.to(cfg.dtype) @ params["frame_proj"]).to(cfg.dtype)
     B, T, _ = h.shape
-    positions = _positions(B, T, h.device)
+    positions = arange_positions(B, T, h.device)
     layers = layer_views(params["enc"])
     for i in range(cfg.n_layers):
         h = _self_block(cfg, layers[i], h, positions, attn_impl, causal=False, tp=tp)
@@ -230,8 +230,8 @@ def decode_train(
     backward (the reference checkpoints its decoder's scan body)."""
     B, S = tokens.shape
     h = embed(params["embed"], tokens, tp).to(cfg.dtype)
-    positions = _positions(B, S, h.device)
-    enc_pos = _positions(B, enc_out.shape[1], h.device)
+    positions = arange_positions(B, S, h.device)
+    enc_pos = arange_positions(B, enc_out.shape[1], h.device)
 
     def body(h, lp):
         h = _self_block(cfg, lp, h, positions, attn_impl, causal=True, tp=tp)
@@ -243,20 +243,41 @@ def decode_train(
     return rms_norm(h, params["final_ln"])
 
 
-def decode_step(
-    cfg: ModelConfig, params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
-    positions: torch.Tensor, kv_caches: KV, cache_positions: torch.Tensor,
-    attn_impl: str = "chunked", tp: ModelAxis = WHOLE,
-) -> Tuple[torch.Tensor, KV]:
-    """Decoder step of ``tokens (B, S)`` at ``positions (B, S)`` against the
-    self-attention caches ``(L, B, max_len, Hkv, Dh)``, which are written **in
-    place** and handed back.  An insert past the caches' end raises
-    ``ValueError`` (the reference clamps it).  Under ``tp`` the caches hold
-    a rank's K / V heads."""
+def train_loss(cfg, params, batch, *, attn_impl, ssd_impl, remat, tp) -> torch.Tensor:
+    enc = encode(cfg, params, batch["frame_embeds"], attn_impl, tp)
+    h = decode_train(cfg, params, enc, batch["tokens"], attn_impl, remat, tp)
+    return lm_head_loss(cfg, params, h, batch["targets"], tp=tp)
+
+
+def new_state(cfg, batch: int, max_len: int, device, tp: ModelAxis = WHOLE):
+    """Zeroed self-attention caches in ``cfg.dtype``."""
+    return transformer.new_state(cfg, batch, max_len, device, tp, dtype=cfg.dtype)
+
+
+def prefill(cfg, params, batch, max_len, device, state, *, attn_impl, ssd_impl, tp, check_room):
+    """The **encoder output** of ``batch["frame_embeds"]`` and the state ``{"kv", "enc",
+    "pos"}``: empty caches (made after the encoder ran), the encoder output and
+    position 0 in every row.  The tokens give only the batch size, as in the reference."""
+    enc = encode(cfg, params, batch["frame_embeds"], attn_impl, tp)
+    B = batch["tokens"].shape[0]
+    kv = (state or new_state(cfg, B, max_len, device, tp))["kv"]
+    return enc, {"kv": kv, "enc": enc, "pos": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
+def decode_step(cfg, params, tokens, state, *, attn_impl, ssd_impl, tp, check_room):
+    """Decoder step of ``tokens (B, S)`` at ``state["pos"]`` against the
+    self-attention caches ``(L, B, max_len, Hkv, Dh)`` of ``state``, which
+    are written **in place** and handed back with the encoder output.  An
+    insert past the caches' end raises ``ValueError`` whatever
+    ``check_room`` says (the reference clamps it).  Under ``tp`` the caches
+    hold a rank's K / V heads."""
+    kv_caches, enc_out = state["kv"], state["enc"]
     B, S = tokens.shape
+    positions = state["pos"][:, None]
+    cache_positions = slot_positions(kv_caches[0])
     check_cache_room(positions, S, kv_caches[0].shape[2])
     h = embed(params["embed"], tokens, tp).to(cfg.dtype)
-    enc_pos = _positions(B, enc_out.shape[1], h.device)
+    enc_pos = arange_positions(B, enc_out.shape[1], h.device)
     cache_index = _cache_index(positions, kv_caches[0].shape[2])
     self_impl = decode_self_impl(attn_impl)
     layers = layer_views(params["dec"])
@@ -266,4 +287,4 @@ def decode_step(
                         kv_cache=(kv_caches[0][i], kv_caches[1][i]),
                         cache_positions=cache_positions, cache_index=cache_index, tp=tp)
         h = _cross(cfg, lp, h, enc_out, enc_pos, attn_impl, tp)
-    return rms_norm(h, params["final_ln"]), kv_caches
+    return rms_norm(h, params["final_ln"]), {"kv": kv_caches, "enc": enc_out}

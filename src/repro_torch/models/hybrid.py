@@ -23,17 +23,27 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..sharding import WHOLE, ModelAxis, Product
-from . import mamba2
+from . import mamba2, transformer
 from .attention import attention
 from .common import (
     apply_rope, check_remat, layer_views, remat_call, rms_norm, rope_sin_cos, swiglu,
     trunc_normal_,
 )
 from .mamba2 import fill_mamba_layers, init_states, layer_axes, layer_shapes, run_stack
-from .transformer import ModelConfig, _cache_index, check_cache_room, embed, lm_loss
+from .transformer import (
+    ModelConfig, _cache_index, arange_positions, cache_insert, check_cache_room, embed, lm_loss,
+    slot_positions,
+)
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
+
+#: the decode state's leaves besides ``pos``
+STATE = ("kv", "ssm", "conv")
+#: the head is the embedding's transpose
+TIED_HEAD = True
+#: the leaves kept in float32 whatever ``cfg.dtype``
+FLOAT32_LEAVES = tuple(f"mamba.{k}" for k in mamba2.FP32_LEAVES)
 
 
 def n_attn_applications(cfg: ModelConfig) -> int:
@@ -139,15 +149,7 @@ def _shared_attn_block(
     v = (x @ sp["wv"]).reshape(B, S, -1, Dh)
     q = apply_rope(q, positions, cfg.rope_theta, sin_cos=rope)
     k = apply_rope(k, positions, cfg.rope_theta, sin_cos=rope)
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        rows, cols = (cache_index if cache_index is not None
-                      else _cache_index(positions, ck.shape[1]))
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        k_att, v_att, kv_pos = ck, cv, cache_positions
-    else:
-        k_att, v_att, kv_pos = k, v, positions
+    k_att, v_att, kv_pos = cache_insert(k, v, positions, kv_cache, cache_positions, cache_index)
     o = attention(q, k_att, v_att, positions, kv_pos, impl=attn_impl)
     h = h + tp.leave(o.reshape(B, S, -1) @ sp["wo"], "heads").to(h.dtype)
     x = tp.enter(rms_norm(h, sp["ln2"]), "ff")
@@ -193,7 +195,7 @@ def forward(
     B, S = tokens.shape
     h = embed(params["embed"], tokens, tp).to(cfg.dtype)
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        positions = arange_positions(B, S, tokens.device)
     period = cfg.attn_period or (cfg.n_layers + 1)
     apps = n_attn_applications(cfg)
     if kv_caches is not None and check_room:
@@ -225,7 +227,39 @@ def lm_head_loss(
     tp: ModelAxis = WHOLE,
 ) -> torch.Tensor:
     """The chunked cross-entropy of :func:`repro_torch.models.transformer.lm_loss`
-    through the tied head (``embed.T``): zamba2 ties its embedding.
-    Vocab-parallel where ``tp`` splits the vocabulary."""
+    through the tied head (``embed.T``): the loss of every family that ties
+    its embedding whatever the config says (``TIED_HEAD``: ssm, hybrid,
+    zamba2, audio).  Vocab-parallel where ``tp`` splits the vocabulary."""
     tied = dataclasses.replace(cfg, tie_embeddings=True)
     return lm_loss(tied, {"embed": params["embed"]}, h, targets, chunk=chunk, tp=tp)
+
+
+def train_loss(cfg, params, batch, *, attn_impl, ssd_impl, remat, tp) -> torch.Tensor:
+    h, _ = forward(cfg, params, batch["tokens"], attn_impl=attn_impl, ssd_impl=ssd_impl,
+                   remat=remat, tp=tp)
+    return lm_head_loss(cfg, params, h, batch["targets"], tp=tp)
+
+
+def new_state(cfg, batch: int, max_len: int, device, tp: ModelAxis = WHOLE,
+              apps: Optional[int] = None) -> State:
+    """The mamba stack's states and ``apps`` KV caches (one a shared-block
+    application by default) in ``cfg.dtype``, as the reference's hybrid keeps them."""
+    ssm, conv = mamba2.init_states(cfg, batch, device, tp)
+    apps = n_attn_applications(cfg) if apps is None else apps
+    kv = transformer.new_state(cfg, batch, max_len, device, tp, dtype=cfg.dtype, layers=apps)
+    return {**kv, "ssm": ssm, "conv": conv}
+
+
+def prefill(cfg, params, batch, max_len, device, state, *, attn_impl, ssd_impl, tp, check_room):
+    state = state or new_state(cfg, batch["tokens"].shape[0], max_len, device, tp)
+    return forward(cfg, params, batch["tokens"], attn_impl=attn_impl, ssd_impl=ssd_impl,
+                   kv_caches=state["kv"], cache_positions=slot_positions(state["kv"][0]),
+                   ssm_states=state["ssm"], conv_states=state["conv"], tp=tp,
+                   check_room=check_room)
+
+
+def decode_step(cfg, params, tokens, state, *, attn_impl, ssd_impl, tp, check_room):
+    return forward(cfg, params, tokens, positions=state["pos"][:, None], attn_impl=attn_impl,
+                   ssd_impl=ssd_impl, kv_caches=state["kv"],
+                   cache_positions=slot_positions(state["kv"][0]), ssm_states=state["ssm"],
+                   conv_states=state["conv"], decode=True, tp=tp, check_room=check_room)

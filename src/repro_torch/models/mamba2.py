@@ -31,7 +31,7 @@ over the axis.  Its decode states hold its heads and its conv channels.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +45,15 @@ D_CONV = 4  # depthwise causal conv width (mamba2 default)
 #: the parameters a mamba layer keeps in float32 whatever the model's dtype
 FP32_LEAVES = ("a_log", "d_skip", "dt_bias")
 
+#: the prefill's scan paths
 SSD_IMPLS = ("chunked", "hopper")
+
+
+def check_ssd_impl(ssd_impl: str) -> str:
+    """``ssd_impl`` if it names a scan path, else ``ValueError``."""
+    if ssd_impl not in SSD_IMPLS:
+        raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
+    return ssd_impl
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +324,7 @@ def mamba_layer(
     :func:`split_products`; the states theirs) and sums its part of the
     output over the ``model`` axis.
     """
-    if ssd_impl not in SSD_IMPLS:
-        raise ValueError(f"unknown ssd impl {ssd_impl!r}: chunked or hopper")
+    check_ssd_impl(ssd_impl)
     B, S, D = h.shape
     if groups > 1 and tp.splits("ssm_heads"):
         raise NotImplementedError("a mamba layer of more than one B / C group does not split "
@@ -426,21 +433,27 @@ def run_stack(
     decode: bool,
     ssd_impl: str,
     tp: ModelAxis = WHOLE,
+    eps: float = 1e-6,
+    pre_add: Optional[Callable[[int, torch.Tensor], Optional[torch.Tensor]]] = None,
 ) -> torch.Tensor:
     """The mamba layers ``layer_ids`` of the stack in order, layer ``i``'s
     parameters ``layers[i]`` (:func:`repro_torch.models.common.layer_views`,
-    taken once a forward however many pieces it runs); writes each
+    taken once a forward however many pieces it runs), each with
+    ``cfg.ssm_groups`` B / C groups and norms of ``eps``; writes each
     layer's new states into ``ssm_states[i]`` / ``conv_states[i]`` **in place**
     (a prompt too short for a conv state leaves that layer's as it was).
     ``ssm_states`` ``None`` (training) keeps no state.  ``tp``: the plan
-    the layers compute under (the states a rank's, :func:`init_states`)."""
+    the layers compute under (the states a rank's, :func:`init_states`).
+    ``pre_add(i, h)`` (Zamba2's shared blocks) gives what is added to layer
+    ``i``'s input ``h`` before its norm, or None."""
     for i in layer_ids:
-        lp = layers[i]
+        add = None if pre_add is None else pre_add(i, h)
         h, new_ssm, new_conv = mamba_layer(
-            lp, h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk=cfg.ssm_chunk,
+            layers[i], h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk=cfg.ssm_chunk,
             ssm_state=ssm_states[i] if decode else None,
             conv_state=conv_states[i] if decode else None,
-            decode=decode, ssd_impl=ssd_impl, tp=tp,
+            decode=decode, ssd_impl=ssd_impl, tp=tp, groups=cfg.ssm_groups, eps=eps,
+            pre_add=add,
         )
         if ssm_states is None:
             continue

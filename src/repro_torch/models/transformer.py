@@ -134,6 +134,14 @@ class ModelConfig:
 #: the port's fields that the reference's ``ModelConfig`` does not have
 PORT_ONLY_FIELDS = ("zamba2",)
 
+#: the decode state's leaves besides ``pos``
+STATE = ("kv",)
+#: the head is ``lm_head``, or the embedding's transpose where
+#: ``cfg.tie_embeddings`` says so
+TIED_HEAD = False
+#: no leaf is kept in float32 whatever ``cfg.dtype``
+FLOAT32_LEAVES = ()
+
 
 # ---------------------------------------------------------------------------
 # Parameter shapes + init
@@ -477,18 +485,8 @@ def block(
     q = _rope(cfg, q, positions, kind, rope_tables, mrope_positions)
     k = _rope(cfg, k, positions, kind, rope_tables, mrope_positions)
 
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        rows, cols = (cache_index if cache_index is not None
-                      else _cache_index(positions, ck.shape[1]))
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        k_att, v_att = ck, cv
-        kv_positions = cache_positions
-    else:
-        k_att, v_att = k, v
-        kv_positions = positions
-
+    k_att, v_att, kv_positions = cache_insert(k, v, positions, kv_cache, cache_positions,
+                                              cache_index)
     window, chunk = _mask_params(cfg, kind)
     o = attention(
         q, k_att, v_att, positions, kv_positions,
@@ -504,6 +502,21 @@ def block(
     else:
         y = moe_ffn(x.reshape(-1, cfg.d_model), lp, cfg.moe, tp=tp).reshape(x.shape)
     return h + y.to(h.dtype)
+
+
+def cache_insert(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, kv_cache,
+                 cache_positions: Optional[torch.Tensor], cache_index=None):
+    """What attention reads: ``k``, ``v``, ``positions``, or with a cache
+    (a layer's ``(B, Skv, Hkv, Dh)`` pair) the cache after ``k`` / ``v`` are
+    written into it **in place** at ``positions[:, 0]`` (rounded to its dtype;
+    the reference returns a new pair) and ``cache_positions``."""
+    if kv_cache is None:
+        return k, v, positions
+    ck, cv = kv_cache
+    rows, cols = cache_index if cache_index is not None else _cache_index(positions, ck.shape[1])
+    ck[rows, cols] = k.to(ck.dtype)
+    cv[rows, cols] = v.to(cv.dtype)
+    return ck, cv, cache_positions
 
 
 def _cache_index(positions: torch.Tensor,
@@ -589,7 +602,7 @@ def forward(
         proj = (patch_embeds.to(cfg.dtype) @ params["patch_proj"]).to(cfg.dtype)
         h = torch.cat([proj, h[:, P:]], dim=1)
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        positions = arange_positions(B, S, tokens.device)
     if kv_caches is not None and check_room:
         check_cache_room(positions, S, kv_caches[0].shape[2])
 
@@ -623,10 +636,10 @@ def embed(w: torch.Tensor, tokens: torch.Tensor, tp: ModelAxis = WHOLE) -> torch
     return tp.leave(rows, "vocab")
 
 
-def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    """The logits of ``h``: over a rank's block of the vocabulary where the
-    bound head is its block."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor, tied: bool = False) -> torch.Tensor:
+    """The logits of ``h`` (through ``embed.T`` where ``cfg`` or ``tied`` ties
+    the head): over a rank's block of the vocabulary where the bound head is its block."""
+    w = params["embed"].T if tied or cfg.tie_embeddings else params["lm_head"]
     return h @ w.to(h.dtype)
 
 
@@ -694,20 +707,67 @@ def lm_loss(
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int,
     dtype: torch.dtype = torch.bfloat16, device: DeviceLike = "cuda",
-    kv_heads: Optional[int] = None,
+    kv_heads: Optional[int] = None, layers: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zeroed ``(L, B, max_len, Hkv, Dh)`` caches — bfloat16 whatever
     ``cfg.dtype`` is, as in the reference: a float32 model still attends over
     bfloat16 keys and values on the cached path.  ``kv_heads``: the K / V
     heads a rank computes, where a plan splits the heads (all of them by
-    default)."""
+    default); ``layers``: the caches' count ``L`` (``cfg.n_layers`` by
+    default; the hybrids keep one an application of a shared block)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.n_kv_heads, cfg.dh)
+    shape = (cfg.n_layers if layers is None else layers, batch, max_len,
+             kv_heads or cfg.n_kv_heads, cfg.dh)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def arange_positions(batch: int, n: int, device: DeviceLike) -> torch.Tensor:
+    """``(batch, n)`` int32 positions ``0 .. n-1`` in every row."""
+    return torch.arange(n, dtype=torch.int32, device=device)[None].expand(batch, n)
+
+
+def slot_positions(cache: torch.Tensor) -> torch.Tensor:
+    """The position of each slot of an ``(L, B, max_len, ...)`` cache: its index."""
+    return arange_positions(cache.shape[1], cache.shape[2], cache.device)
 
 
 def kv_cache_axes() -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     """Logical axes of the ``(L, B, S, Hkv, Dh)`` K and V caches."""
     ax = ("layers", "batch", "kv_seq", "heads", "head_dim")
     return ax, ax
+
+
+# ---------------------------------------------------------------------------
+# The family's entry points (:data:`repro_torch.models.FAMILIES`)
+# ---------------------------------------------------------------------------
+
+
+def train_loss(cfg, params, batch, *, attn_impl, ssd_impl, remat, tp) -> torch.Tensor:
+    h, _ = forward(cfg, params, batch["tokens"], attn_impl=attn_impl, remat=remat,
+                   patch_embeds=batch.get("patch_embeds"),
+                   mrope_positions=batch.get("mrope_positions"), tp=tp)
+    return lm_loss(cfg, params, h, batch["targets"], tp=tp)
+
+
+def new_state(cfg, batch: int, max_len: int, device, tp: ModelAxis = WHOLE, **cache):
+    """Zeroed KV caches of the K / V heads ``tp`` computes; ``cache``: the
+    other families' ``dtype`` and ``layers`` (:func:`init_kv_cache`)."""
+    k0, k1 = tp.range("kv_heads", cfg.n_kv_heads)
+    return {"kv": init_kv_cache(cfg, batch, max_len, device=device, kv_heads=k1 - k0, **cache)}
+
+
+def prefill(cfg, params, batch, max_len, device, state, *, attn_impl, ssd_impl, tp, check_room):
+    kv = (state or new_state(cfg, batch["tokens"].shape[0], max_len, device, tp))["kv"]
+    h, kv = forward(cfg, params, batch["tokens"], attn_impl=attn_impl, kv_caches=kv,
+                    cache_positions=slot_positions(kv[0]), patch_embeds=batch.get("patch_embeds"),
+                    mrope_positions=batch.get("mrope_positions"), tp=tp, check_room=check_room)
+    return h, {"kv": kv}
+
+
+def decode_step(cfg, params, tokens, state, *, attn_impl, ssd_impl, tp, check_room):
+    kv = state["kv"]
+    h, kv = forward(cfg, params, tokens, positions=state["pos"][:, None], attn_impl=attn_impl,
+                    kv_caches=kv, cache_positions=slot_positions(kv[0]), tp=tp,
+                    check_room=check_room)
+    return h, {"kv": kv}

@@ -40,13 +40,26 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import WHOLE, ModelAxis
+from . import hybrid
 from .attention import attention
 from .common import apply_rope, layer_views, rms_norm, rope_sin_cos, trunc_normal_
-from .mamba2 import fill_mamba_layers, layer_axes, layer_shapes, mamba_layer
-from .transformer import ModelConfig, _cache_index, check_cache_room, embed
+from .mamba2 import fill_mamba_layers, layer_axes, layer_shapes, run_stack
+from .transformer import (
+    ModelConfig, _cache_index, arange_positions, cache_insert, check_cache_room, embed,
+    slot_positions,
+)
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
+
+#: the decode state's leaves besides ``pos``
+STATE = ("kv", "ssm", "conv")
+#: the head is the embedding's transpose
+TIED_HEAD = True
+#: every leaf is held in ``cfg.dtype``, as the published checkpoint holds it
+#: (the scan reads ``a_log`` / ``d_skip`` / ``dt_bias`` in float32 all the same)
+FLOAT32_LEAVES = ()
 
 #: eps of every norm of the published model (``rms_norm_eps``, and the
 #: mixer's gated norm)
@@ -140,15 +153,7 @@ def shared_block(
     v = (x @ sp["wv"]).reshape(B, S, -1, Dh)
     q = apply_rope(q, positions, cfg.rope_theta, sin_cos=rope)
     k = apply_rope(k, positions, cfg.rope_theta, sin_cos=rope)
-    if kv_cache is not None:
-        ck, cv = kv_cache
-        rows, cols = (cache_index if cache_index is not None
-                      else _cache_index(positions, ck.shape[1]))
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        k_att, v_att, kv_pos = ck, cv, cache_positions
-    else:
-        k_att, v_att, kv_pos = k, v, positions
+    k_att, v_att, kv_pos = cache_insert(k, v, positions, kv_cache, cache_positions, cache_index)
     o = attention(q, k_att, v_att, positions, kv_pos, impl=attn_impl, scale=(Dh / 2) ** -0.5)
     x = rms_norm(o.reshape(B, S, -1) @ sp["wo"], sp["ln2"], EPS)
     gate, up = (x @ sp["w_gate_up"] + (x @ ap["lora_a"]) @ ap["lora_b"]).chunk(2, dim=-1)
@@ -180,7 +185,7 @@ def forward(
     B, S = tokens.shape
     e = embed(params["embed"], tokens).to(cfg.dtype)
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+        positions = arange_positions(B, S, tokens.device)
     if kv_caches is not None and check_room:
         check_cache_room(positions, S, kv_caches[0].shape[2])
     # the same for every application: computed once
@@ -190,24 +195,42 @@ def forward(
     # each group's views once, however many applications read it
     shared, apps, mamba = (layer_views(params[g]) for g in ("shared", "apps", "mamba"))
 
-    h = e
-    for i in range(cfg.n_layers):
-        add = None
-        if i in app_of:
-            j = app_of[i]
-            cache = None if kv_caches is None else (kv_caches[0][j], kv_caches[1][j])
-            add = shared_block(cfg, shared[j % z.mem_blocks], apps[j], h, e, positions,
-                               attn_impl, kv_cache=cache, cache_positions=cache_positions,
-                               rope=rope, cache_index=cache_index)
-        h, new_ssm, new_conv = mamba_layer(
-            mamba[i], h, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
-            chunk=cfg.ssm_chunk, ssm_state=ssm_states[i] if decode else None,
-            conv_state=conv_states[i] if decode else None, decode=decode, ssd_impl=ssd_impl,
-            groups=z.ssm_groups, eps=EPS, pre_add=add,
-        )
-        if ssm_states is not None:
-            ssm_states[i] = new_ssm
-            if new_conv is not None:
-                conv_states[i] = new_conv
+    def shared_add(i: int, h: torch.Tensor) -> Optional[torch.Tensor]:
+        """What the application before layer ``i`` (if one is) adds to its input."""
+        j = app_of.get(i)
+        if j is None:
+            return None
+        cache = None if kv_caches is None else (kv_caches[0][j], kv_caches[1][j])
+        return shared_block(cfg, shared[j % z.mem_blocks], apps[j], h, e, positions, attn_impl,
+                            kv_cache=cache, cache_positions=cache_positions, rope=rope,
+                            cache_index=cache_index)
+
+    h = run_stack(cfg, mamba, e, range(cfg.n_layers), ssm_states, conv_states, decode, ssd_impl,
+                  eps=EPS, pre_add=shared_add)
     h = rms_norm(h, params["final_ln"], EPS)
     return h, {"kv": kv_caches, "ssm": ssm_states, "conv": conv_states}
+
+
+def train_loss(cfg, params, batch, *, attn_impl, ssd_impl, remat, tp) -> torch.Tensor:
+    raise NotImplementedError(
+        f"{cfg.name}: the zamba2 family serves only; training waits for a backward of "
+        "the SSD kernel (ROADMAP E3)")
+
+
+def new_state(cfg, batch: int, max_len: int, device, tp: ModelAxis = WHOLE) -> State:
+    """The hybrid's state (:func:`repro_torch.models.hybrid.new_state`), a cache an application."""
+    return hybrid.new_state(cfg, batch, max_len, device, tp, apps=applications(cfg))
+
+
+def prefill(cfg, params, batch, max_len, device, state, *, attn_impl, ssd_impl, tp, check_room):
+    state = state or new_state(cfg, batch["tokens"].shape[0], max_len, device, tp)
+    return forward(cfg, params, batch["tokens"], attn_impl=attn_impl, ssd_impl=ssd_impl,
+                   kv_caches=state["kv"], cache_positions=slot_positions(state["kv"][0]),
+                   ssm_states=state["ssm"], conv_states=state["conv"], check_room=check_room)
+
+
+def decode_step(cfg, params, tokens, state, *, attn_impl, ssd_impl, tp, check_room):
+    return forward(cfg, params, tokens, positions=state["pos"][:, None], attn_impl=attn_impl,
+                   ssd_impl=ssd_impl, kv_caches=state["kv"],
+                   cache_positions=slot_positions(state["kv"][0]), ssm_states=state["ssm"],
+                   conv_states=state["conv"], decode=True, check_room=check_room)

@@ -49,11 +49,11 @@ written into one slot, or broadcast into all) and ``graph.capture`` (a
 :class:`StepGraph` capture).  Its counters: ``serve.prefill_tokens`` (prompt
 tokens prefilled), ``serve.decode_rows`` (the rows the decode steps
 computed), ``serve.busy_rows`` (those of them that held a request), and
-for the families with mamba layers ``serve.ssd_scan_tokens`` (prompt
-tokens times mamba layers: the rows the prefills' SSD scans walked) and
-``ssd.launches.<path>.p<p_block>`` (the SSD kernel's launches of the
-prefills by plan, from its wrapper's ``launches_by_plan``, which a replayed
-graph keeps true).  All are ticked on the host, so they hold whether a
+for the models that keep SSM states ``serve.ssd_scan_tokens`` (prompt
+tokens times layers: the rows the prefills' SSD scans walked) and what the
+kernels publish (:func:`repro_torch.kernels.telemetry_counts`: the SSD
+kernel's launches by plan, ``ssd.launches.<path>.p<p_block>``, which a
+replayed graph keeps true).  All are ticked on the host, so they hold whether a
 prefill ran eagerly or as a graph.
 While a torch profiler records, each span is also a range on its trace.
 """
@@ -70,52 +70,14 @@ import torch
 
 from .. import obs
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_attention import flash_attention
-from ..kernels.mamba2_ssd import mamba2_ssd
-from ..models import Model, ModelConfig, param_dtypes
+from ..models import (
+    Model, ModelConfig, add_launches, launch_counts, launches_since, param_dtypes,
+    telemetry_counts,
+)
 from ..models.transformer import check_room
 from ..obs import Histogram
 
 State = Dict[str, Any]
-
-#: the kernel wrappers, each with its launch counter (``launches``,
-#: ``launches_by_path``), which a replayed graph keeps true
-KERNEL_WRAPPERS = (flash_attention, mamba2_ssd)
-#: per wrapper of ``KERNEL_WRAPPERS``: its launches and its launches by path
-Launches = Tuple[Tuple[int, Dict[str, int]], ...]
-#: the families whose every layer is a mamba layer (the hybrid's and
-#: zamba2's shared blocks come beside them)
-MAMBA_FAMILIES = ("ssm", "hybrid", "zamba2")
-
-
-def launch_counts() -> Launches:
-    return tuple((w.launches, dict(w.launches_by_path)) for w in KERNEL_WRAPPERS)
-
-
-def launches_since(before: Launches) -> Launches:
-    return tuple((n - n0, {p: c - paths0.get(p, 0) for p, c in paths.items()})
-                 for (n, paths), (n0, paths0) in zip(launch_counts(), before))
-
-
-def plan_counts() -> Dict[str, int]:
-    """The SSD kernel's launches by plan (``mamba2_ssd.launches_by_plan``)."""
-    return dict(mamba2_ssd.launches_by_plan)
-
-
-def plans_since(before: Dict[str, int]) -> Dict[str, int]:
-    return {k: n - before.get(k, 0) for k, n in plan_counts().items() if n != before.get(k, 0)}
-
-
-def add_launches(launches: Launches, times: int, plans: Optional[Dict[str, int]] = None) -> None:
-    """Adds ``times`` x ``launches`` to the wrappers' counters, and ``times``
-    x ``plans`` to the SSD kernel's launches by plan."""
-    for w, (n, paths) in zip(KERNEL_WRAPPERS, launches):
-        w.launches += times * n
-        for p, c in paths.items():
-            w.launches_by_path[p] += times * c
-    by_plan = mamba2_ssd.launches_by_plan
-    for k, c in (plans or {}).items():
-        by_plan[k] = by_plan.get(k, 0) + times * c
 
 
 class StepGraph:
@@ -130,7 +92,8 @@ class StepGraph:
     writes its output.  The kernel wrappers count their Python calls, so
     capture raises their counters for launches that did not run and a
     replay raises none: :meth:`capture` takes back what it added and
-    :meth:`replay` adds what one replay launches, path by path, so that
+    :meth:`replay` adds what one replay launches, counter by counter
+    (``launches``, :func:`repro_torch.kernels.launches_since`), so that
     every counter equals the launches that ran.  ``capture_seconds`` (the
     seconds of every capture of the graph) and ``pool_bytes`` (the memory
     the last capture added to the graph's pool) are set by the capture.
@@ -145,8 +108,7 @@ class StepGraph:
         self.share = share
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches: Optional[Launches] = None    # what one replay launches
-        self.plans: Dict[str, int] = {}              # its SSD launches by plan
+        self.launches: Optional[Dict] = None    # what one replay launches
         self.replays = 0
         self.capture_seconds: Optional[float] = None
         self.pool_bytes: Optional[int] = None
@@ -163,15 +125,15 @@ class StepGraph:
 
     def capture(self, step: Callable[[], Any]) -> Any:
         with obs.span("graph.capture"):
-            before, plans = launch_counts(), plan_counts()
+            before = launch_counts()
             out = self._record(step)
-            self.launches, self.plans = launches_since(before), plans_since(plans)
-            add_launches(self.launches, -1, self.plans)
+            self.launches = launches_since(before)
+            add_launches(self.launches, -1)
         return out
 
     def replay(self) -> None:
         self._replay()
-        add_launches(self.launches, 1, self.plans)
+        add_launches(self.launches, 1)
         self.replays += 1
 
     def _record(self, step: Callable[[], Any]) -> Any:
@@ -295,19 +257,19 @@ class Server:
         """The logits and one-sequence state of the prompt ``tokens (1, L)``.
         A graph cannot raise, so a prompt longer than the cache raises here,
         on the host, before anything runs."""
-        cfg = self.model.cfg
-        if cfg.family != "ssm":      # the families with a KV cache
+        leaves = self.model.family.STATE
+        if "kv" in leaves:
             check_room(0, 0, tokens.shape[1], self.cfg.max_len)
-        plans = plan_counts() if obs.enabled() else None
+        before = launch_counts() if obs.enabled() else None
         with obs.span("serve.prefill"):
             out = self._graph_prefill(tokens) if self.cuda_graph else self._prefill_step(tokens)
-        if plans is not None:
+        if before is not None:
             reg = obs.metrics()
             reg.counter("serve.prefill_tokens").inc(tokens.shape[1])
-            if cfg.family in MAMBA_FAMILIES:
-                reg.counter("serve.ssd_scan_tokens").inc(tokens.shape[1] * cfg.n_layers)
-            for key, n in plans_since(plans).items():
-                reg.counter(f"ssd.launches.{key}").inc(n)
+            if "ssm" in leaves:
+                reg.counter("serve.ssd_scan_tokens").inc(tokens.shape[1] * self.model.cfg.n_layers)
+            for name, n in telemetry_counts(launches_since(before)).items():
+                reg.counter(name).inc(n)
         return out
 
     def _prefill_step(self, tokens: torch.Tensor, out: Optional[State] = None):

@@ -27,7 +27,7 @@ from repro.models import mamba2 as jmamba2
 from repro_torch.models.transformer import PORT_ONLY_FIELDS
 from repro_torch import convert
 from repro_torch.kernels import mamba2_ssd as ssd
-from repro_torch.models import Model, hybrid, mamba2, param_dtypes, param_shapes
+from repro_torch.models import Model, hybrid, mamba2, param_dtypes, param_shapes, ssm
 
 torch.set_num_threads(1)
 
@@ -335,7 +335,7 @@ def test_decode_consistency_with_forward(arch):
     B, S = 2, 8
     toks = torch.from_numpy(_tokens(cfg, B, S + 1))
     if cfg.family == "ssm":
-        h_full, _ = model._ssm_forward(toks)
+        h_full, _ = ssm.forward(cfg, model.params, toks, ssd_impl=model.ssd_impl)
     else:
         h_full, _ = hybrid.forward(cfg, model.params, toks, attn_impl="xla")
     _, state = model.prefill({"tokens": toks[:, :S]}, max_len=S + 4)

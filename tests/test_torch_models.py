@@ -24,7 +24,10 @@ from repro.models import common as jcommon
 from repro.models import transformer as jtransformer
 from repro_torch.models.transformer import PORT_ONLY_FIELDS
 from repro_torch import convert
-from repro_torch.models import Model, ModelConfig, MoEConfig, attention, common, transformer
+from repro_torch.configs.base import PORT_ONLY_IDS
+from repro_torch.models import (
+    FAMILIES, Model, ModelConfig, MoEConfig, attention, common, transformer,
+)
 
 torch.set_num_threads(1)
 
@@ -407,6 +410,29 @@ def test_arch_ids_list_only_what_is_ported():
         tconfigs.get_config("no_such_arch")
     for arch in ported:
         assert Model(tconfigs.reduced_config(arch), device="cpu").cfg.name.endswith("_smoke")
+
+
+#: what every family module provides (:data:`repro_torch.models.FAMILIES`)
+FAMILY_INTERFACE = ("param_shapes", "param_axes", "split_products", "fill_params", "train_loss",
+                    "new_state", "prefill", "decode_step", "STATE", "TIED_HEAD",
+                    "FLOAT32_LEAVES")
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS + PORT_ONLY_IDS)
+def test_every_family_has_the_whole_interface(arch):
+    """The family of every configuration is in the table, its module
+    provides the whole interface, and a model of it (no storage) holds
+    exactly the module's parameters."""
+    cfg = tconfigs.get_config(arch)
+    assert cfg.family in FAMILIES
+    module = FAMILIES[cfg.family]
+    missing = [name for name in FAMILY_INTERFACE if not hasattr(module, name)]
+    assert not missing, f"{module.__name__} lacks {missing}"
+    assert set(module.STATE) <= {"kv", "ssm", "conv", "enc"}
+    assert set(module.FLOAT32_LEAVES) <= set(module.param_shapes(cfg))
+    model = Model(cfg, device="cpu", storage="meta")
+    assert model.family is module
+    assert sorted(dict(model.named_parameters())) == sorted(module.param_shapes(cfg))
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -31,6 +31,7 @@ cover the families the Server serves; weights and requests are those of
 
 import re
 from collections import Counter
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from repro.runtime.serving import Request as JRequest
-from repro_torch import obs
+from repro_torch import kernels, obs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import ops
@@ -503,6 +504,49 @@ def _counting(monkeypatch):
     return log
 
 
+@pytest.mark.parametrize("name", sorted(kernels.COUNTED))
+def test_capture_and_replay_keep_every_counter_of_every_wrapper(name, monkeypatch):
+    """Each counted wrapper, each of its counters (an integer, or integers
+    by key): a step that raises them all by 2 is counted once eagerly; its
+    capture counts it and takes that back; each replay (which calls no
+    counted Python) adds exactly one step's rise."""
+    wrapper, counters = kernels.COUNTED[name]
+    for counter in counters:
+        fresh = {} if isinstance(getattr(wrapper, counter), dict) else 0
+        monkeypatch.setattr(wrapper, counter, fresh)
+    log = {"mode": None}
+
+    def step():
+        if log["mode"] != "replay":     # a replay runs kernels, not the wrapper
+            for counter in counters:
+                value = getattr(wrapper, counter)
+                if isinstance(value, dict):
+                    value["k"] = value.get("k", 0) + 2
+                else:
+                    setattr(wrapper, counter, value + 2)
+        return torch.zeros(1)
+
+    def read():
+        return {c: getattr(wrapper, c) if isinstance(getattr(wrapper, c), int)
+                else dict(getattr(wrapper, c)) for c in counters}
+
+    def after(steps):
+        return {c: {"k": 2 * steps} if isinstance(getattr(wrapper, c), dict) else 2 * steps
+                for c in counters}
+
+    server = SimpleNamespace(device=torch.device("cpu"), _state=None, _prefill_out=None)
+    graph = CountingEagerGraph(server, False, None, log)
+    graph.warm(step)
+    assert read() == after(1)
+    graph.capture(step)
+    assert read() == after(1)
+    assert graph.launches == {(name, c, "k" if isinstance(getattr(wrapper, c), dict) else None): 2
+                              for c in counters}
+    for replays in range(1, 4):
+        graph.replay()
+        assert read() == after(1 + replays)
+
+
 @pytest.mark.parametrize("arch", ["stablelm_3b", "mamba2_370m", "zamba2_2_7b"])
 def test_prefill_counters_equal_the_launches_that_ran(arch, monkeypatch):
     """Through a Server's prefill graphs and its decode graph, in two
@@ -607,7 +651,10 @@ def test_counters_equal_the_launches_that_ran(monkeypatch):
     launch(fa.flash_attention, "mma")           # a prefill between the steps
     graph.capture(step)
     check()
-    assert graph.launches == ((3, {"fma": 0, "mma": 0, "split": 3}), (1, {"fma": 0, "mma": 1}))
+    assert graph.launches == {("flash_attention", "launches", None): 3,
+                              ("flash_attention", "launches_by_path", "split"): 3,
+                              ("mamba2_ssd", "launches", None): 1,
+                              ("mamba2_ssd", "launches_by_path", "mma"): 1}
     for i in range(5):
         graph.replay()
         check()

@@ -253,7 +253,7 @@ def test_a_replayed_graph_keeps_the_launches_by_plan():
 
         graph = Graph(torch.device("cpu"))
         graph.capture(step)
-        assert graph.plans == {"mma.p32": 3}
+        assert graph.launches == {("mamba2_ssd", "launches_by_plan", "mma.p32"): 3}
         assert ssd.mamba2_ssd.launches_by_plan == {"mma.p32": 0}
         for _ in range(4):
             graph.replay()
