@@ -107,7 +107,15 @@ phase prints one JSON line:
                          restarts from its step-4 checkpoint and must end bit for bit where
                          an uninterrupted run ends, and the same for qwen2_moe_a2_7b at 2
                          layers (4,096 tokens a batch: the MoE capacity path); (c) float32
-                         gradients through ``"chunked"`` against ``"xla"`` within 1e-4
+                         gradients through ``"chunked"`` against ``"xla"`` within 1e-4;
+                         every step through AdamW's kernels (two norm launches and one
+                         update a step); then an ``adamw`` line: the kernels at train_4k's
+                         leaves (device ms of the norm, the update and both beside their
+                         bounds, the plain version's, ``torch._fused_adamw_``'s as a
+                         yardstick, each step's memory above its inputs, launches by
+                         kernel, a strict-mode graph capture of one step), the norm
+                         and one step against the plain version at full size, and
+                         the gap to the plain version at 2 layers (``ADAMW_LIMITS``)
 15. ``train_mesh``       the meshed trainer on the card's one-rank NCCL mesh (data=1, model=1):
                          ``python -m repro_torch.launch.train ... --fsdp`` as a subprocess at
                          full width and depth beside the train phase's un-meshed run; float32
@@ -200,6 +208,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import COUNTED, _build, ops, ref  # noqa: E402
+from repro_torch.kernels import adamw as kadamw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import train_attention as ta  # noqa: E402
@@ -226,6 +235,7 @@ KERNEL_REPLACES = "src/repro/kernels/flash_attention.py:86"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
 SSD_REPLACES = "src/repro/kernels/mamba2_ssd.py:37"
 TRAIN_ATTN_SOURCE = "src/repro_torch/kernels/csrc/train_attention.cu"
+ADAMW_SOURCE = "src/repro_torch/kernels/csrc/adamw.cu"
 #: where every phase puts its tensors (a rehearsal on the CPU may point it there)
 DEVICE = torch.device("cuda")
 #: each kernel's wrapper, which carries its launch count (the training attention's
@@ -252,6 +262,7 @@ def reset_counts() -> None:
     fa.flash_attention.launches_by_path = {p: 0 for p in fa.PATHS}
     ssd.mamba2_ssd.launches_by_path = {p: 0 for p in ssd.PATHS}
     ta.train_attention.launches_by_kernel = {n: 0 for n in ta.KERNELS}
+    kadamw.adamw.launches_by_kernel = {n: 0 for n in kadamw.KERNELS}
 
 
 def read_counts() -> dict:
@@ -2787,6 +2798,9 @@ def phase_train(ctx):
         require(trained == {"fwd": 2 * per_step, "bwd_dot": per_step, "bwd_dkdv": per_step,
                             "bwd_dq": per_step}, f"train: training attention launches {trained}")
         ctx["train_attention_launches"] = trained
+        stepped = dict(kadamw.adamw.launches_by_kernel)
+        require(stepped == {"norm": 2 * TRAIN["steps"], "update": TRAIN["steps"]},
+                f"train: AdamW's launches {stepped}")
         losses = run["losses"]
         state_gb = sum(t.numel() * t.element_size() for part in (run["params"],
                        run["opt_state"]["mu"], run["opt_state"]["nu"]) for t in part.values())
@@ -2799,7 +2813,8 @@ def phase_train(ctx):
             "tokens_per_s": TRAIN["seq_len"] * TRAIN["global_batch"] / float(np.median(steady)),
             "losses": losses, "params_and_moments_gb": state_gb / 2**30,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
-            "kernel_launches": launches, "train_attention_launches": trained}
+            "kernel_launches": launches, "train_attention_launches": trained,
+            "adamw_launches": stepped}
         ctx["train_full"] = out["full"]
         require(len(losses) == TRAIN["steps"] and all(np.isfinite(losses)), "train: losses")
         require(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
@@ -2861,6 +2876,280 @@ def phase_train(ctx):
         gc.collect()
         torch.cuda.empty_cache()
     emit("train", **out)
+    adamw_entry(ctx)
+
+
+#: AdamW's kernels at train_4k's leaves (stablelm_3b at full width and depth:
+#: bf16 parameters and gradients, float32 moments), timed over ``iters`` steps
+#: and held to the plain version over one step; the gap to the plain version
+#: for each dtype at ``check_layers`` over ``check_steps``; the gaps are taken
+#: ``chunk`` elements at a time, so that a full-size leaf's comparison holds a
+#: few float32 chunks and no float32 copy of the leaf
+ADAMW = dict(arch="stablelm_3b", iters=10, check_layers=2, check_steps=3, chunk=1 << 26)
+#: the gaps a kernel step may leave against the plain version (the moments:
+#: ``b1 mu + (1 - b1) g`` may cancel to far below its terms, so an element is
+#: held to 1e-6 of itself plus 1e-6 of its leaf's largest; bf16 parameters:
+#: units of bf16's spacing at the element's size before or after the step,
+#: whichever is larger, :func:`bf16_ulp_gap`)
+ADAMW_LIMITS = dict(moment_rtol=1e-6, norm_rtol=1e-6, fp32_param_atol=1e-6,
+                    bf16_param_ulps=1, bf16_param_share=1e-4)
+#: bytes a parameter: the update reads p and g (bf16) and mu and nu (fp32) and
+#: writes p, mu and nu; the norm reads g; ``torch._fused_adamw_`` (every
+#: tensor float32) reads four and writes three
+ADAMW_BYTES = {"norm": 2, "update": 22, "step": 24, "library": 28}
+
+
+def adamw_shapes(layers=None):
+    """stablelm_3b's leaves, the layer axis cut to ``layers`` if given."""
+    from repro_torch.models import param_shapes
+
+    cfg = get_config(ADAMW["arch"])
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return {k: tuple(v) for k, v in param_shapes(cfg).items()}
+
+
+def chunks(*tensors):
+    """The tensors flattened and cut alike into ``ADAMW["chunk"]`` elements."""
+    return zip(*(t.reshape(-1).split(ADAMW["chunk"]) for t in tensors))
+
+
+def bf16_ulp_gap(got, want, before):
+    """Elements that differ between two bfloat16 tensors, and the largest gap
+    in units of bfloat16's spacing at the larger of each element's magnitude
+    before and after the step: an element that a step carries through or
+    near zero carries its operands' rounding, not a rounding of its own size."""
+    differing, ulps = 0, 0.0
+    for g, w, b in chunks(got, want, before):
+        scale = torch.maximum(b.float().abs(), w.float().abs()).clamp_min(1e-30)
+        spacing = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+        gap = (g.float() - w.float()).abs() / spacing
+        differing, ulps = differing + int((g != w).sum()), max(ulps, float(gap.max()))
+    return differing, ulps
+
+
+def adamw_gaps(got, want, before, limits=ADAMW_LIMITS):
+    """The gaps between a kernel step and the plain version's, and the faults
+    against ``limits``: ``got`` / ``want`` hold ``params``, ``mu``, ``nu``
+    (trees) and ``grad_norm``; ``before`` the parameters the step started from."""
+    leaves = ((k, {part: got[part][k] for part in ("params", "mu", "nu")},
+               {part: want[part][k] for part in ("params", "mu", "nu")}, before[k])
+              for k in want["params"])
+    return leaf_gaps(got["grad_norm"], want["grad_norm"], leaves, limits)
+
+
+def leaf_gaps(got_norm, want_norm, leaves, limits=ADAMW_LIMITS):
+    """:func:`adamw_gaps` over ``leaves``, an iterable of ``(name, got, want,
+    before)`` with ``got`` / ``want`` one leaf's ``params``, ``mu`` and ``nu``:
+    a generator may make each leaf's plain step when it is asked for it."""
+    faults = []
+    norm_rel = abs(float(got_norm) - float(want_norm)) / float(want_norm)
+    if norm_rel > limits["norm_rtol"]:
+        faults.append(f"grad_norm {norm_rel:.3g}")
+    moment, fp32_gap, differing, elements, ulps = 0.0, 0.0, 0, 0, 0.0
+    for k, got, want, before in leaves:
+        for part in ("mu", "nu"):
+            largest = max(float(b.abs().max()) for (b,) in chunks(want[part]))
+            excess = 0.0
+            for a, b in chunks(got[part], want[part]):
+                room = (b.abs() + largest) * limits["moment_rtol"]
+                excess = max(excess, float(((a - b).abs() / room.clamp_min(1e-30)).max()))
+            moment = max(moment, excess * limits["moment_rtol"])
+            if excess > 1:
+                faults.append(f"{part} {k}")
+        w = want["params"]
+        if w.dtype == torch.bfloat16:
+            n, u = bf16_ulp_gap(got["params"], w, before)
+            differing, elements, ulps = differing + n, elements + w.numel(), max(ulps, u)
+        else:
+            fp32_gap = max([fp32_gap] + [float((a - b).abs().max())
+                                         for a, b in chunks(got["params"], w)])
+        del got, want, before
+    share = differing / elements if elements else 0.0
+    if fp32_gap > limits["fp32_param_atol"]:
+        faults.append(f"fp32 params {fp32_gap:.3g}")
+    if ulps > limits["bf16_param_ulps"] or share > limits["bf16_param_share"]:
+        faults.append(f"bf16 params: {differing} differ, {ulps:.3g} ulps")
+    gaps = {"grad_norm_rel": norm_rel, "moment_rel": moment, "fp32_param_abs": fp32_gap,
+            "bf16_params_differing": differing, "bf16_param_share": share,
+            "bf16_param_ulps": ulps}
+    return gaps, faults
+
+
+def adamw_plain_step(opt, params, grads, state, grad_norm=None):
+    """One step of the plain version on any device, as ``adamw_update``
+    frames it: ``(new state, the norm it clipped by)``."""
+    from repro_torch.optim import cosine_schedule
+
+    count = state["count"] + 1
+    lr = cosine_schedule(opt, count)
+    gnorm = kadamw.adamw_plain(opt, params, grads, state["mu"], state["nu"], count, lr, grad_norm)
+    return {"mu": state["mu"], "nu": state["nu"], "count": count}, gnorm
+
+
+def adamw_resync(params, state, plain, pstate):
+    """The kernel's side set to the plain version's parameters and moments:
+    each compared step then starts from the same state, and the gaps are one
+    step's, not roundings compounded over the steps before it."""
+    with torch.no_grad():
+        for k, p in plain.items():
+            params[k].copy_(p)
+            state["mu"][k].copy_(pstate["mu"][k])
+            state["nu"][k].copy_(pstate["nu"][k])
+
+
+def step_peak_gib(fn):
+    """Device memory ``fn`` allocates above what was held when it started."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def adamw_entry(ctx):
+    """AdamW's kernels (``kernels/adamw.py``, ``csrc/adamw.cu``) at train_4k's
+    leaves: device ms of the norm, the update (norm given) and the whole step,
+    each beside its bound (:data:`ADAMW_BYTES` a parameter over 3.35e12 B/s),
+    the plain version's step on the same tensors, ``torch._fused_adamw_``'s (a
+    yardstick the port never calls: every tensor float32, no norm), each
+    step's memory above its inputs, the launches by kernel, ptxas's registers;
+    one step captured in a CUDA graph in the strict mode (no host sync); at
+    full size the kernels' norm against the plain version's and one step
+    against the plain version's on copies of the same state (the plain step
+    leaf by leaf, as the gaps ask for each leaf); then at 2 layers, for each dtype of parameters and gradients and the norm
+    given or computed, three steps against the plain version under
+    :data:`ADAMW_LIMITS`, each from the same state (:func:`adamw_resync`)."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=1000)
+    shapes = adamw_shapes()
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def draw(std, dtype, layers_shapes=shapes):
+        return {k: (torch.randn(s, generator=gen, device=DEVICE) * std).to(dtype)
+                for k, s in layers_shapes.items()}
+
+    out = {"arch": ADAMW["arch"], "card": ctx.get("card"), "source": ADAMW_SOURCE,
+           "leaves": len(shapes), "params": n, "dtypes": "bf16 params and grads, fp32 moments",
+           "replaces": "none (the reference's update is XLA-fused under jax.jit)"}
+    params, grads = draw(0.02, torch.bfloat16), draw(1e-3, torch.bfloat16)
+    state = adamw_init(params)
+    count = torch.ones((), dtype=torch.int32, device=DEVICE)
+    lr = cosine_schedule(opt, count)
+    mu, nu = state["mu"], state["nu"]
+    gnorm = kadamw.global_norm(grads)
+    calls = {
+        "norm": lambda: kadamw.global_norm(grads),
+        "update": lambda: kadamw.adamw(opt, params, grads, mu, nu, count, lr, grad_norm=gnorm),
+        "step": lambda: kadamw.adamw(opt, params, grads, mu, nu, count, lr),
+    }
+    ms = {name: time_ms(fn, warmup=2, iters=ADAMW["iters"]) for name, fn in calls.items()}
+    bounds = {name: ADAMW_BYTES[name] * n / PEAK_BYTES_PER_S * 1e3 for name in calls}
+    plain_ms = time_ms(lambda: kadamw.adamw_plain(opt, params, grads, mu, nu, count, lr),
+                       warmup=1, iters=3)
+    before = dict(kadamw.adamw.launches_by_kernel)
+    peaks = {"kernel": step_peak_gib(calls["step"]),
+             "plain": step_peak_gib(lambda: kadamw.adamw_plain(opt, params, grads, mu, nu,
+                                                                count, lr))}
+    launched = {k: kadamw.adamw.launches_by_kernel[k] - before[k] for k in kadamw.KERNELS}
+    require(launched == {"norm": 2, "update": 1}, f"adamw: one step's launches {launched}")
+    # what a captured trainer step (ROADMAP A19) would hold; a failed capture raises
+    graph_step = {"ms": graph_ms(calls["step"], iters=2, replays=2, strict=True)}
+    del calls
+
+    # full size: the kernels' norm over every element, then one step against
+    # the plain version's on copies of the same parameters and moments
+    torch.cuda.empty_cache()
+    want_norm = kadamw.global_norm_plain(grads)
+    full_norm_rel = abs(float(kadamw.global_norm(grads)) - float(want_norm)) / float(want_norm)
+    plain = {part: {k: t.clone() for k, t in tree.items()}
+             for part, tree in (("params", params), ("mu", mu), ("nu", nu))}
+    got_norm = kadamw.adamw(opt, params, grads, mu, nu, count, lr)
+
+    def plain_leaves():
+        for k in params:
+            before = plain["params"][k].clone()
+            one = {part: {k: tree[k]} for part, tree in plain.items()}
+            kadamw.adamw_plain(opt, one["params"], {k: grads[k]}, one["mu"], one["nu"],
+                               count, lr, want_norm)
+            yield (k, {"params": params[k], "mu": mu[k], "nu": nu[k]},
+                   {part: plain[part][k] for part in plain}, before)
+            del before
+    full_gaps, full_faults = leaf_gaps(got_norm, want_norm, plain_leaves())
+    full_size = {"grad_norm": float(want_norm), "norm_rel": full_norm_rel, **full_gaps,
+                 "failed": full_faults}
+    del params, grads, state, mu, nu, gnorm, plain, want_norm, got_norm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the library's fused AdamW, every tensor float32 (it takes one dtype)
+    lib = {k: [torch.empty(s, device=DEVICE).normal_(generator=gen) for s in shapes.values()]
+           for k in ("p", "g", "m", "v")}
+    steps = [torch.ones((), device=DEVICE) for _ in shapes]
+
+    def fused():
+        torch._fused_adamw_(lib["p"], lib["g"], lib["m"], lib["v"], [], steps, lr=opt.lr,
+                            beta1=opt.b1, beta2=opt.b2, weight_decay=opt.weight_decay,
+                            eps=opt.eps, amsgrad=False, maximize=False)
+    library_ms = time_ms(fused, warmup=2, iters=ADAMW["iters"])
+    del lib, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gap to the plain version, 2 layers, three steps from the same tensors
+    small = adamw_shapes(ADAMW["check_layers"])
+    checks, failures = [], []
+    for p_dtype in (torch.bfloat16, torch.float32):
+        for g_dtype in (torch.bfloat16, torch.float32):
+            for given in (False, True):
+                params = draw(0.02, p_dtype, small)
+                plain = {k: t.clone() for k, t in params.items()}
+                state, pstate = adamw_init(params), adamw_init(plain)
+                worst = {}
+                for _ in range(ADAMW["check_steps"]):
+                    grads = draw(1e-3, g_dtype, small)
+                    norm = kadamw.global_norm_plain(grads) if given else None
+                    before = {k: t.clone() for k, t in plain.items()}
+                    _, state, met = adamw_update(opt, params, grads, state, grad_norm=norm)
+                    pstate, pnorm = adamw_plain_step(opt, plain, grads, pstate, norm)
+                    gaps, faults = adamw_gaps(
+                        {"params": params, "mu": state["mu"], "nu": state["nu"],
+                         "grad_norm": met["grad_norm"]},
+                        {"params": plain, "mu": pstate["mu"], "nu": pstate["nu"],
+                         "grad_norm": pnorm}, before)
+                    worst = {k: max(v, worst.get(k, v)) for k, v in gaps.items()}
+                    failures += faults
+                    adamw_resync(params, state, plain, pstate)
+                checks.append({"params": str(p_dtype).replace("torch.", ""),
+                               "grads": str(g_dtype).replace("torch.", ""),
+                               "norm": "given" if given else "computed",
+                               "grad_norm": float(pnorm), **worst})
+                del params, plain, state, pstate, grads, before
+    grads = draw(1e-3, torch.bfloat16, small)
+    same_bits = torch.equal(kadamw.global_norm(grads), kadamw.global_norm(grads))
+    del grads
+    torch.cuda.empty_cache()
+
+    res = {r["kernel"]: r for r in _build.info().resources()}
+    out.update({
+        "device_ms": ms, "bound_ms": bounds,
+        "of_bound": {k: bounds[k] / ms[k] for k in ms},
+        "bytes_per_param": ADAMW_BYTES, "graph_step": graph_step, "full_size": full_size,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library": "torch._fused_adamw_, fp32",
+        "step_peak_gib": peaks, "launches_by_kernel": launched,
+        "resources": {readable(k): {f: r[f] for f in ("registers", "spill_store_bytes",
+                                                       "static_smem_bytes", "stack_bytes")}
+                      for k, r in res.items() if "adamw" in k},
+        "limits": ADAMW_LIMITS, "checks": checks, "failed": failures,
+        "norm_same_bits_twice": same_bits})
+    emit("adamw", **out)
+    require(full_norm_rel <= ADAMW_LIMITS["norm_rtol"] and not full_faults,
+            f"adamw: the kernels against the plain version at full size: {full_size}")
+    require(not failures, f"adamw: the kernels against the plain version: {failures}")
+    require(same_bits, "adamw: two norms of the same gradients differ")
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@
 oracles; ``flash_attention`` the attention wrapper, plain version and tile
 chooser; ``mamba2_ssd`` the SSD scan's wrapper and plain version;
 ``train_attention`` training attention's forward and backward (an autograd
-function) and their plain version; ``_build``
+function) and their plain version; ``adamw`` AdamW's update and the global
+norm over a tree of leaves and their plain version; ``_build``
 compiles ``csrc/*.cu`` at first use.  Importing any of
 them compiles nothing.
 
@@ -17,9 +18,9 @@ launches (a CUDA graph calls no Python) needs to keep them true.
 
 from typing import Dict, Optional, Tuple
 
-from . import flash_attention, mamba2_ssd, ops, ref, train_attention
+from . import adamw, flash_attention, mamba2_ssd, ops, ref, train_attention
 
-__all__ = ["flash_attention", "mamba2_ssd", "ops", "ref", "train_attention", "COUNTED",
+__all__ = ["adamw", "flash_attention", "mamba2_ssd", "ops", "ref", "train_attention", "COUNTED",
            "launch_counts", "launches_since", "add_launches", "telemetry_counts"]
 
 #: the counted wrappers by name, each with the names of its counter attributes
@@ -27,6 +28,7 @@ COUNTED = {
     "flash_attention": (flash_attention.flash_attention, ("launches", "launches_by_path")),
     "mamba2_ssd": (mamba2_ssd.mamba2_ssd, ("launches", "launches_by_path", "launches_by_plan")),
     "train_attention": (train_attention.train_attention, ("launches_by_kernel",)),
+    "adamw": (adamw.adamw, ("launches_by_kernel",)),
 }
 
 #: the counters a traced run publishes, under the telemetry name each key

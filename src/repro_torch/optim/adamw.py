@@ -6,7 +6,9 @@ here) where the reference keeps them in float32.  Moments are float32;
 parameters may be bfloat16 (each update is computed in float32 and rounded
 once).  A "tree" here is a flat ``name -> tensor`` dict (the model's state
 dict names); the optimizer state mirrors it.  The update writes into the
-parameters and moments it is given.
+parameters and moments it is given.  The step itself and the global norm are
+:mod:`repro_torch.kernels.adamw`: CUDA kernels on the card, the plain version
+elsewhere.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+
+from ..kernels import adamw as kadamw
 
 Params = Mapping[str, torch.Tensor]
 
@@ -63,15 +67,6 @@ def adamw_init(params: Params) -> Dict[str, object]:
     }
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """``sqrt`` of the sum of every element's square, in float32."""
-    total = None
-    for x in tree.values():
-        sq = x.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
-
-
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig, params: Params, grads: Params, state: Mapping[str, object],
@@ -90,25 +85,11 @@ def adamw_update(
     new state, {"grad_norm", "lr"})``, the state holding the same moments and
     the new count.  ``grad_norm`` is the global norm where ``grads`` are each
     rank's blocks of larger tensors (the meshed trainer computes it over the
-    mesh); it defaults to :func:`global_norm` of ``grads``."""
+    mesh); it defaults to the global norm of ``grads``.  CUDA tensors take
+    the hand-written kernels, with no leaf-sized temporary; tensors on any
+    other device the plain version (:mod:`repro_torch.kernels.adamw`)."""
     count = state["count"] + 1
-    dev = count.device
     lr = cosine_schedule(cfg, count)
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.minimum(_f32(1.0, dev), cfg.grad_clip / torch.clamp_min(gnorm, 1e-9))
-    c = count.to(torch.float32)
-    bias1 = 1 - _f32(cfg.b1, dev) ** c
-    bias2 = 1 - _f32(cfg.b2, dev) ** c
-    for k, p in params.items():
-        mu, nu = state["mu"][k], state["nu"][k]
-        g = grads[k].float() * scale
-        mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        nu.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
-        del g
-        step = (mu / bias1).div_((nu / bias2).sqrt_().add_(cfg.eps))
-        p32 = p.float()
-        step.add_(p32, alpha=cfg.weight_decay).mul_(lr)
-        p.copy_(p32.sub_(step))   # for a float32 p, p32 is p: copy_ then does nothing
-        del step, p32
+    gnorm = kadamw.adamw(cfg, params, grads, state["mu"], state["nu"], count, lr, grad_norm)
     return params, {"mu": state["mu"], "nu": state["nu"], "count": count}, \
         {"grad_norm": gnorm, "lr": lr}

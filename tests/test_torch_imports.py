@@ -146,8 +146,8 @@ def test_source_names_neither_jax_nor_the_reference_package(path):
 
 def test_cuda_sources_are_package_data():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    assert [p.name for p in sorted(csrc.iterdir())] == ["flash_attention.cu", "mamba2_ssd.cu",
-                                                         "train_attention.cu"]
+    assert [p.name for p in sorted(csrc.iterdir())] == ["adamw.cu", "flash_attention.cu",
+                                                         "mamba2_ssd.cu", "train_attention.cu"]
     for src in csrc.iterdir():
         text = src.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text, src.name

@@ -393,8 +393,8 @@ def test_build_is_lazy_and_fails_loudly_without_nvcc(monkeypatch, tmp_path):
     there is no nvcc raises a CompileError naming it — nothing falls back."""
     from repro_torch.kernels import _build
 
-    assert [p.name for p in _build.sources()] == ["flash_attention.cu", "mamba2_ssd.cu",
-                                                   "train_attention.cu"]
+    assert [p.name for p in _build.sources()] == ["adamw.cu", "flash_attention.cu",
+                                                   "mamba2_ssd.cu", "train_attention.cu"]
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
